@@ -1,0 +1,183 @@
+"""Inference pipeline: pre-process -> forward + decode -> post-process.
+
+Counterpart of ``centerpose_tpu/inference/detector.py``: fix_res affine
+warp to ``input_res`` (or keep_res padded to ``test.pad_bucket``), uint8
+normalisation on the device, optional flip test as a batch of two,
+clamped sigmoid, decode at K = ``test.topk``, host inverse affine.
+
+Everything up to the decoded [B, K, 40] rows runs on the device: the image
+is uploaded as uint8 and warped there (no cv2).  Multi-scale testing needs
+the soft-NMS merge, which is not ported yet, and raises.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from centerpose_tpu_torch.config import Config
+from centerpose_tpu_torch.inference.post_process import multi_pose_post_process
+from centerpose_tpu_torch.losses import sigmoid_clamped
+from centerpose_tpu_torch.models.common import (to_channels_last,
+                                                to_compute_dtype)
+from centerpose_tpu_torch.models.factory import create_model, model_dtype
+from centerpose_tpu_torch.ops.decode import multi_pose_decode
+from centerpose_tpu_torch.ops.image import (FLIP_IDX, get_affine_transform,
+                                            warp_affine)
+from centerpose_tpu_torch.utils.platform import resolve_device
+from centerpose_tpu_torch.weights import load_state_dict
+
+
+def _flip_perm(n: int) -> list:
+    perm = list(range(n))
+    for a, b in FLIP_IDX:
+        perm[a], perm[b] = perm[b], perm[a]
+    return perm
+
+
+def flip_lr(x: torch.Tensor) -> torch.Tensor:
+    """Flip a joint-channel map [B, H, W, 17] in W and swap L/R joints."""
+    return x.flip(2)[..., _flip_perm(x.shape[-1])]
+
+
+def flip_lr_off(x: torch.Tensor) -> torch.Tensor:
+    """Flip a joint-offset map [B, H, W, 34] ((x, y) per joint): flip W,
+    negate x, swap L/R joints."""
+    b, h, w, c = x.shape
+    j = c // 2
+    x = x.flip(2).reshape(b, h, w, j, 2).clone()
+    x[..., 0] *= -1.0
+    return x[:, :, :, _flip_perm(j), :].reshape(b, h, w, c)
+
+
+class Detector:
+    """Single-image / batched inference engine.
+
+    ``state_dict``: model weights (``weights.state_dict_from_npz``); None
+    keeps the random initialisation, seeded with 0.  ``device``: the card
+    unless the caller asks for ``"cpu"``."""
+
+    def __init__(self, cfg: Config, state_dict: Optional[dict] = None,
+                 device: str | torch.device = "cuda"):
+        if len(cfg.test.test_scales) != 1 or cfg.test.test_scales[0] != 1.0:
+            raise NotImplementedError(
+                "multi-scale testing needs the soft-NMS merge, which is not "
+                "ported yet (ROADMAP.md); use test_scales (1.0,)")
+        if cfg.test.nms:
+            raise NotImplementedError("test.nms (soft-NMS) is not ported yet")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = create_model(cfg)
+        if state_dict is not None:
+            load_state_dict(model, state_dict)
+        self.model = to_channels_last(to_compute_dtype(
+            model.to(self.device), model_dtype(cfg))).eval()
+        self.mean = torch.tensor(cfg.dataset.mean, dtype=torch.float32,
+                                 device=self.device)
+        self.std = torch.tensor(cfg.dataset.std, dtype=torch.float32,
+                                device=self.device)
+        self.flip_test = cfg.test.flip_test
+        self.k = cfg.test.topk
+
+    # ------------------------------------------------------------------
+    # device stage
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def process(self, images: torch.Tensor) -> torch.Tensor:
+        """[N, H, W, 3] uint8 (normalised here) or float32 (already
+        normalised) on the device -> decoded [N, K, 40]."""
+        cfg = self.cfg
+        if images.dtype == torch.uint8:
+            images = (images.float() / 255.0 - self.mean) / self.std
+        if self.flip_test:
+            images = torch.cat([images, images.flip(2)], dim=0)
+        out = self.model(images)
+        hm = sigmoid_clamped(out["hm"])
+        hm_hp = sigmoid_clamped(out["hm_hp"]) if cfg.loss.hm_hp else None
+        wh, hps = out["wh"], out["hps"]
+        reg = out["reg"] if cfg.loss.reg_offset else None
+        hp_offset = out["hp_offset"] if cfg.loss.reg_hp_offset else None
+        if self.flip_test:
+            n = images.shape[0] // 2
+            hm = (hm[:n] + hm[n:].flip(2)) / 2.0
+            wh = (wh[:n] + wh[n:].flip(2)) / 2.0
+            hps = (hps[:n] + flip_lr_off(hps[n:])) / 2.0
+            if hm_hp is not None:
+                hm_hp = (hm_hp[:n] + flip_lr(hm_hp[n:])) / 2.0
+            if reg is not None:
+                reg = reg[:n]
+            if hp_offset is not None:
+                hp_offset = hp_offset[:n]
+        return multi_pose_decode(hm, wh, hps, reg, hm_hp, hp_offset, k=self.k)
+
+    # ------------------------------------------------------------------
+    # host stages
+    # ------------------------------------------------------------------
+    def pre_process(self, image: np.ndarray):
+        """Affine-warp one [H, W, 3] image on the device; returns
+        ([1, h, w, 3] uint8 on the device, meta).  A float image (0-255
+        pixel values) is normalised here and returned as float32."""
+        height, width = image.shape[0:2]
+        if self.cfg.test.keep_res:
+            bucket = max(32, self.cfg.test.pad_bucket)
+            inp_height = (height + bucket - 1) // bucket * bucket
+            inp_width = (width + bucket - 1) // bucket * bucket
+            c = np.array([width // 2, height // 2], dtype=np.float32)
+            s = np.array([inp_width, inp_height], dtype=np.float32)
+        else:
+            inp_height = inp_width = self.cfg.model.input_res
+            c = np.array([width / 2.0, height / 2.0], dtype=np.float32)
+            s = max(height, width) * 1.0
+        trans = get_affine_transform(c, s, 0.0, (inp_width, inp_height))
+        src = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+        warped = warp_affine(src, trans, (inp_width, inp_height))
+        if image.dtype == np.uint8:
+            inp = warped.round_().clamp_(0, 255).to(torch.uint8)
+        else:
+            inp = (warped / 255.0 - self.mean) / self.std
+        down = self.cfg.model.input_res // self.cfg.model.output_res
+        meta = {"c": c, "s": s, "out_height": inp_height // down,
+                "out_width": inp_width // down}
+        return inp[None], meta
+
+    def post_process(self, dets: np.ndarray, meta: dict) -> Dict[int, np.ndarray]:
+        """[1, K, 40] grid coords -> {1: [K, 39]} original-image pixels."""
+        out = multi_pose_post_process(dets, [meta["c"]], [meta["s"]],
+                                      meta["out_height"], meta["out_width"])
+        return out[0]
+
+    # ------------------------------------------------------------------
+    # entry points
+    # ------------------------------------------------------------------
+    def run(self, image: np.ndarray) -> Dict:
+        """Full pipeline on one RGB [H, W, 3] image; returns the results and
+        per-stage wall times (seconds, device work synchronised)."""
+        if not isinstance(image, np.ndarray):
+            raise TypeError("Detector.run takes an [H, W, 3] numpy image; "
+                            "decoding image files is not ported")
+        sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                else (lambda: None))
+        t0 = time.perf_counter()
+        images, meta = self.pre_process(image)
+        sync()
+        t1 = time.perf_counter()
+        dets = self.process(images).cpu().numpy()  # the one D2H copy
+        t2 = time.perf_counter()
+        res = self.post_process(dets, meta)
+        keep = np.argsort(-res[1][:, 4])[: self.k]
+        results = {1: res[1][keep]}
+        t3 = time.perf_counter()
+        return {"results": results, "tot": t3 - t0, "pre": t1 - t0,
+                "net": t2 - t1, "post": t3 - t2}
+
+    def run_batch(self, images: np.ndarray) -> np.ndarray:
+        """Batched frames [N, H, W, 3] -> decoded [N, K, 40] (grid coords).
+        uint8 frames are normalised on the device; float32 frames are taken
+        as already normalised.  The caller does any inverse affine."""
+        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        return self.process(x).cpu().numpy()

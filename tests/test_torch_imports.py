@@ -1,0 +1,119 @@
+"""The port stands alone: no JAX, no reference package, no cv2 or yaml on
+its main path; CUDA is never replaced quietly by the CPU."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "centerpose_tpu_torch"
+
+_GUARD = r"""
+import importlib, pkgutil, sys
+for m in ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "yaml"):
+    sys.modules[m] = None  # any import of these now raises ImportError
+import numpy as np
+import centerpose_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    centerpose_tpu_torch.__path__, "centerpose_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # importing must not run main()
+from centerpose_tpu_torch.config import default_config, update_config
+from centerpose_tpu_torch.inference.detector import Detector
+from centerpose_tpu_torch.weights import state_dict_from_npz
+cfg = update_config(default_config(), {"model": {
+    "name": "dla_34", "input_res": 128, "output_res": 32, "head_conv": 256,
+    "dcn_impl": "pallas_full"}})
+det = Detector(cfg, state_dict_from_npz(sys.argv[1]), device="cpu")
+img = np.random.default_rng(0).integers(0, 256, (120, 160, 3), np.uint8)
+images, meta = det.pre_process(img)
+dets = det.run_batch(images.numpy())
+assert dets.shape == (1, 100, 40), dets.shape
+assert np.isfinite(dets).all()
+bad = [m for m in ("jax", "flax", "cv2", "yaml", "centerpose_tpu")
+       if sys.modules.get(m) is not None]
+assert not bad, bad
+print("GUARD_OK", len(names))
+"""
+
+
+def test_port_imports_without_jax_cv2_yaml():
+    from _torch_port import NPZ
+
+    proc = subprocess.run([sys.executable, "-c", _GUARD, NPZ], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "GUARD_OK" in proc.stdout
+    assert "[phase]" not in proc.stdout and "chip_smoke:" not in proc.stderr
+
+
+def test_no_reference_imports_in_port_sources():
+    pattern = re.compile(
+        r"^\s*(import\s+(jax|jaxlib|flax|optax|orbax|cv2|yaml)\b"
+        r"|from\s+(jax|jaxlib|flax|optax|orbax|cv2)\b"
+        r"|import\s+centerpose_tpu\b(?!_)|from\s+centerpose_tpu[\s.](?!_))",
+        re.M)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        text = f.read_text()
+        hits = pattern.findall(text)
+        # yaml may be imported lazily by the config loader only
+        lazy_yaml = f.name == "defaults.py" and all(
+            h[1] == "yaml" for h in hits)
+        assert not hits or lazy_yaml, (f, hits)
+
+
+def test_cuda_request_without_a_card_raises(monkeypatch):
+    from centerpose_tpu_torch.utils.platform import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+    from centerpose_tpu_torch.inference.detector import Detector
+
+    from _torch_port import torch_cfg
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Detector(torch_cfg(128))  # the default device is the card
+
+
+class _FakeCudaTensor:
+    """Stands in for a CUDA tensor (this machine has none)."""
+
+    def __init__(self, t):
+        self._t = t
+        self.device = torch.device("cuda", 0)
+        self.dtype = t.dtype
+        self.shape = t.shape
+
+    def dim(self):
+        return self._t.dim()
+
+    def is_contiguous(self):
+        return True
+
+
+def test_kernel_wrapper_raises_for_cuda_without_library(monkeypatch):
+    from centerpose_tpu_torch.ops import dcn_cuda as dc
+
+    monkeypatch.setattr(dc, "_lib", [])
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setenv("CUDA_PATH", "/nonexistent")
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.setattr(dc.os.path, "isfile", lambda p: False)
+    monkeypatch.setattr(dc, "library_path",
+                        lambda: Path("/nonexistent/libcp_dcn.so"))
+    args = [_FakeCudaTensor(torch.zeros(s)) for s in
+            ((1, 8, 16, 8), (3, 3, 8, 27), (27,), (3, 3, 8, 4), (4,))]
+    dc.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        # the plain version is never taken for a CUDA tensor
+        dc.dcn_v2_fused(*args, None)
+    assert dc.dcn_v2_fused.launches == 0
