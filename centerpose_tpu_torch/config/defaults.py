@@ -110,7 +110,7 @@ class TrainConfig:
     val_ap_limit: int = 0
     num_workers: int = 4
     # Host->device wire format for training batches: "float32" or
-    # "compact" (uint8 images, f16 targets).  Training is not ported yet.
+    # "compact" (uint8 images, f16 targets).
     wire: str = "float32"
     grad_accum: int = 1
     # Checkpointing.

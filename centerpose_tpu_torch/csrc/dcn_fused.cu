@@ -1,17 +1,23 @@
-// Om-fused modulated deformable convolution v2 (DCNv2) forward for Hopper.
+// Modulated deformable convolution v2 (DCNv2) forward for Hopper: the
+// om-fused forward (K1) and the forward from explicit offsets (K2).
 //
-// Replaces the TPU kernels of centerpose_tpu/ops/dcn_pallas.py that
+// K1 replaces the TPU kernels of centerpose_tpu/ops/dcn_pallas.py that
 // dcn_v2_pallas_fused dispatches to: _dcn_pallas_fwd_fom_impl (row-major,
 // W = 128; kernel body _dcn_kernel_fom) and _dcn_pallas_grouped_fom_impl
 // (row-grouped, W in {16, 32, 64}; kernel body _dcn_grouped_kernel_fom).
-// Both compute one function, and so does this file:
+// K2 replaces those dcn_v2_pallas dispatches to, the training forward:
+// _dcn_pallas_fwd_impl (W = 128; _dcn_kernel) and _dcn_pallas_grouped_impl
+// (W in {16, 32, 64}; _dcn_grouped_kernel).  K1 computes
 //
 //   om   = conv3x3(x; omw[3,3,Cin,27]) + omb            (offset/mask conv)
 //   dy_k = clip(om[2k], -R, R), dx_k = om[2k+1], m_k = sigmoid(om[18+k])
 //   y    = bias + sum_k W_k^T . m_k . bilinear(x, p + p_k + (dy_k, dx_k))
 //
-// with zero contribution from every bilinear corner outside the image and
-// R < 0 meaning "no clamp".  The TPU layouts (row grouping, lane one-hots,
+// and K2 the last line given offset [B,H,W,18] (dy, dx per tap) and the
+// sigmoid-ed mask [B,H,W,9]: K2 is K1's second launch, the product kernel,
+// instantiated for offsets and mask in the input type instead of K1's f32
+// om scratch.  Every bilinear corner outside the image contributes zero;
+// R < 0 means "no clamp".  The TPU layouts (row grouping, lane one-hots,
 // the slab DMA) existed only to fit VMEM and the 128-lane vector unit; none
 // of them is carried over.
 //
@@ -20,7 +26,7 @@
 // move about 43 MB in bf16 (activations in and out, weights once): the
 // operations dominate, ~19 us per image at the bf16 tensor-core rate and
 // ~0.28 ms at the f32 CUDA-core rate.  The design is the simple one: two
-// launches per call.
+// launches per K1 call, one per K2 call.
 //   1. the 27-channel om conv, f32 accumulate, writes the raw offsets and
 //      the sigmoid-ed mask to an f32 scratch [B*H*W, 27]: f32 FMA for
 //      float32 (dcn_om_f32_kernel), WMMA bf16 tiles with N padded to 32 for
@@ -214,14 +220,16 @@ dcn_om_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 // y[p, n] = bias[n] + sum_{k, c} W[k, c, n] * sample_k(p, c), where
 // sample_k(p, c) = m_k(p) * sum over the 4 bilinear corners q of
 // w_q * x[corner_q, c].  Offsets are read at off[p * ld_off + 2k (+1)],
-// the mask at msk[p * ld_msk + k]; max_dy < 0 disables the clamp.
+// the mask at msk[p * ld_msk + k], both of type TO: f32 from K1's om
+// scratch, the input type for K2; max_dy < 0 disables the clamp.
 
 // The four bilinear corners of tap k for the tile's pixels m0 .. m0+kBM-1:
 // element offset of each corner's channel row (-1 outside the image) and
 // its weight times the mask.  Threads 0 .. kBM-1 each take one pixel.
+template <typename TO>
 __device__ __forceinline__ void tap_corners(
-    int k, long long m0, long long npix, const float* __restrict__ off,
-    int ld_off, const float* __restrict__ msk, int ld_msk, int H, int W,
+    int k, long long m0, long long npix, const TO* __restrict__ off,
+    int ld_off, const TO* __restrict__ msk, int ld_msk, int H, int W,
     int Cin, float max_dy, long long (*cidx)[kBM], float (*cwt)[kBM]) {
   const int tid = threadIdx.x;
   if (tid >= kBM) return;
@@ -233,10 +241,10 @@ __device__ __forceinline__ void tap_corners(
     const long long t = m / W;
     const int py = (int)(t % H);
     const long long b = t / H;
-    float dy = off[m * ld_off + 2 * k];
-    const float dx = off[m * ld_off + 2 * k + 1];
+    float dy = to_f(off[m * ld_off + 2 * k]);
+    const float dx = to_f(off[m * ld_off + 2 * k + 1]);
     if (max_dy >= 0.f) dy = fminf(fmaxf(dy, -max_dy), max_dy);
-    const float mk = msk[m * ld_msk + k];
+    const float mk = to_f(msk[m * ld_msk + k]);
     const float sy = (float)(py + k / 3 - 1) + dy;
     const float sx = (float)(px + k % 3 - 1) + dx;
     const float y0 = floorf(sy), x0 = floorf(sx);
@@ -351,10 +359,11 @@ dcn_gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ off,
 // product takes them) and the product runs on the tensor cores through
 // WMMA 16x16x16 tiles with f32 accumulators.  Warp w owns rows
 // 16*(w%4) .. +15 and columns 32*(w/4) .. +31 of the 64x64 output tile.
+template <typename TO>
 __global__ void __launch_bounds__(kThreads)
 dcn_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                     const float* __restrict__ off, int ld_off,
-                     const float* __restrict__ msk, int ld_msk,
+                     const TO* __restrict__ off, int ld_off,
+                     const TO* __restrict__ msk, int ld_msk,
                      const __nv_bfloat16* __restrict__ wt,
                      const float* __restrict__ bias,
                      __nv_bfloat16* __restrict__ y, int B, int H, int W,
@@ -448,19 +457,23 @@ void launch_om(const __nv_bfloat16* x, const __nv_bfloat16* omw,
                        stream>>>(x, omw, omb, om, B, H, W, Cin);
 }
 
-void launch_gemm(const float* x, const float* om, const float* w,
+void launch_gemm(const float* x, const float* off, int ld_off,
+                 const float* msk, int ld_msk, const float* w,
                  const float* bias, float* y, int B, int H, int W, int Cin,
-                 int Cout, float max_dy, dim3 grid, cudaStream_t stream) {
+                 int Cout, float max_dy, cudaStream_t stream) {
+  const dim3 grid(blocks((long long)B * H * W, kBM), blocks(Cout, kBN));
   dcn_gemm_f32_kernel<<<grid, kThreads, 0, stream>>>(
-      x, om, kOm, om + 18, kOm, w, bias, y, B, H, W, Cin, Cout, max_dy);
+      x, off, ld_off, msk, ld_msk, w, bias, y, B, H, W, Cin, Cout, max_dy);
 }
 
-void launch_gemm(const __nv_bfloat16* x, const float* om,
-                 const __nv_bfloat16* w, const float* bias,
-                 __nv_bfloat16* y, int B, int H, int W, int Cin, int Cout,
-                 float max_dy, dim3 grid, cudaStream_t stream) {
-  dcn_gemm_bf16_kernel<<<grid, kThreads, 0, stream>>>(
-      x, om, kOm, om + 18, kOm, w, bias, y, B, H, W, Cin, Cout, max_dy);
+template <typename TO>
+void launch_gemm(const __nv_bfloat16* x, const TO* off, int ld_off,
+                 const TO* msk, int ld_msk, const __nv_bfloat16* w,
+                 const float* bias, __nv_bfloat16* y, int B, int H, int W,
+                 int Cin, int Cout, float max_dy, cudaStream_t stream) {
+  const dim3 grid(blocks((long long)B * H * W, kBM), blocks(Cout, kBN));
+  dcn_gemm_bf16_kernel<TO><<<grid, kThreads, 0, stream>>>(
+      x, off, ld_off, msk, ld_msk, w, bias, y, B, H, W, Cin, Cout, max_dy);
 }
 
 template <typename T>
@@ -473,10 +486,23 @@ int launch_fused(const void* x, const void* omw, const void* omb,
             stream);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(blocks((long long)B * H * W, kBM), blocks(Cout, kBN));
-  launch_gemm(static_cast<const T*>(x), static_cast<const float*>(om),
+  const float* omf = static_cast<const float*>(om);
+  launch_gemm(static_cast<const T*>(x), omf, kOm, omf + 18, kOm,
               static_cast<const T*>(w), static_cast<const float*>(bias),
-              static_cast<T*>(y), B, H, W, Cin, Cout, max_dy, grid, stream);
+              static_cast<T*>(y), B, H, W, Cin, Cout, max_dy, stream);
+  return (int)cudaGetLastError();
+}
+
+// K2: the product kernel on offsets [P, 18] and mask [P, 9] of type T.
+template <typename T>
+int launch_forward(const void* x, const void* off, const void* msk,
+                   const void* w, const void* bias, void* y, int B, int H,
+                   int W, int Cin, int Cout, float max_dy,
+                   cudaStream_t stream) {
+  launch_gemm(static_cast<const T*>(x), static_cast<const T*>(off), 18,
+              static_cast<const T*>(msk), 9, static_cast<const T*>(w),
+              static_cast<const float*>(bias), static_cast<T*>(y), B, H, W,
+              Cin, Cout, max_dy, stream);
   return (int)cudaGetLastError();
 }
 
@@ -499,5 +525,23 @@ extern "C" int cp_dcn_v2_fused_forward(int dtype, const void* x,
   if (dtype == 1)
     return launch_fused<__nv_bfloat16>(x, omw, omb, w, bias, om, y, B, H, W,
                                        Cin, Cout, max_dy, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2.  dtype: 0 = float32, 1 = bfloat16 (x, offset, mask, w, y); bias is
+// float32.  offset [B*H*W, 18] (dy, dx per tap), mask [B*H*W, 9] already
+// sigmoid-ed.  max_dy < 0: unclamped.  Returns cudaGetLastError().
+extern "C" int cp_dcn_v2_forward(int dtype, const void* x, const void* off,
+                                 const void* msk, const void* w,
+                                 const void* bias, void* y, int B, int H,
+                                 int W, int Cin, int Cout, float max_dy,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_forward<float>(x, off, msk, w, bias, y, B, H, W, Cin, Cout,
+                                 max_dy, s);
+  if (dtype == 1)
+    return launch_forward<__nv_bfloat16>(x, off, msk, w, bias, y, B, H, W,
+                                         Cin, Cout, max_dy, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,7 +5,17 @@ tensors (the model runs in ``channels_last`` memory format, so they are NHWC
 in memory).  Submodule attribute names follow the JAX parameter tree
 (``Conv_0``, ``BatchNorm_0``, ``{head}_conv``...), so that ``weights.py``
 maps a snapshot key to a state-dict key by renaming its leaf only.
-BatchNorm: torch momentum 0.1 is flax momentum 0.9; eps is 1e-5.
+
+Compute dtype, as the reference's per-module ``dtype``: every module casts
+its weights to the dtype of the activations it is given, at use.  Training
+keeps float32 master parameters (``set_compute_dtype``); inference may cast
+them once (``to_compute_dtype``), after which the per-use cast is free.
+BatchNorm parameters and statistics stay float32 either way.
+
+BatchNorm: torch momentum 0.1 is flax momentum 0.9; eps is 1e-5.  In train
+mode the port's ``BatchNorm2d`` follows flax, not torch: it normalises with
+the biased batch variance (as both do) and also updates ``running_var``
+with the biased one (torch would use the unbiased, n/(n-1) larger).
 """
 
 from __future__ import annotations
@@ -14,9 +24,45 @@ from typing import Dict
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 # Heatmap-head bias init: -log((1 - pi) / pi) with prior pi = 0.1.
 HM_BIAS_INIT = -2.19
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose weight and bias are cast to the input's dtype at
+    use (flax ``nn.Conv(dtype=...)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax's train-mode semantics (``flax.linen.BatchNorm``,
+    ``use_fast_variance``): statistics in float32 over (N, H, W), the
+    output normalised with the biased batch variance, and the running
+    statistics updated under ``no_grad`` as ``ra = m * ra + (1 - m) *
+    batch`` with m = 0.9 and the biased variance ``E[x^2] - E[x]^2``
+    (clipped at 0).  Eval mode is ``nn.BatchNorm2d``'s."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            xf = x.float()
+            mean = xf.mean((0, 2, 3))
+            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            m = 1.0 - self.momentum
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
 
 
 class ConvBN(nn.Module):
@@ -25,10 +71,10 @@ class ConvBN(nn.Module):
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  strides: int = 1, relu: bool = True):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_features, features, kernel, stride=strides,
-                                padding=(kernel - 1) // 2, bias=False)
+        self.Conv_0 = Conv2d(in_features, features, kernel, stride=strides,
+                             padding=(kernel - 1) // 2, bias=False)
         nn.init.kaiming_normal_(self.Conv_0.weight)
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        self.BatchNorm_0 = BatchNorm2d(features)
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -49,12 +95,12 @@ class HeadStack(nn.Module):
         for name, ch in self.heads.items():
             cin = in_features
             if head_conv > 0:
-                conv = nn.Conv2d(in_features, head_conv, 3, padding=1)
+                conv = Conv2d(in_features, head_conv, 3, padding=1)
                 nn.init.kaiming_normal_(conv.weight)
                 nn.init.zeros_(conv.bias)
                 self.add_module(f"{name}_conv", conv)
                 cin = head_conv
-            out = nn.Conv2d(cin, ch, 1)
+            out = Conv2d(cin, ch, 1)
             nn.init.normal_(out.weight, std=0.001)
             nn.init.constant_(out.bias,
                               HM_BIAS_INIT if name in ("hm", "hm_hp") else 0.0)
@@ -82,12 +128,21 @@ def to_channels_last(model: nn.Module) -> nn.Module:
     return model
 
 
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Make ``model`` compute in ``dtype`` (its ``compute_dtype``: the dtype
+    its input is cast to) and leave the parameters as they are: the
+    training setting, float32 master parameters cast at use."""
+    model.compute_dtype = dtype
+    return model
+
+
 def to_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast ``model`` to compute in ``dtype`` as the reference does under
-    ``model.compute_dtype``: conv, DCN and head weights in ``dtype``;
-    BatchNorm parameters and statistics in float32 (flax normalises in f32
-    and casts the result), and every parameter a module lists in
-    ``float32_params`` (the DCN bias) in float32."""
+    """``set_compute_dtype`` and cast the parameters once, as the reference
+    computes under ``model.compute_dtype``: conv, DCN and head weights in
+    ``dtype``; BatchNorm parameters and statistics in float32 (flax
+    normalises in f32 and casts the result), and every parameter a module
+    lists in ``float32_params`` (the DCN bias) in float32.  The inference
+    setting (the per-use casts then cost nothing)."""
     for m in model.modules():
         tensors = [*m.named_parameters(recurse=False),
                    *m.named_buffers(recurse=False)]
@@ -96,4 +151,4 @@ def to_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
         for name, t in tensors:
             if t.is_floating_point():
                 t.data = t.data.to(torch.float32 if name in keep else dtype)
-    return model
+    return set_compute_dtype(model, dtype)

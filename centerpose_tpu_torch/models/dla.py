@@ -8,11 +8,15 @@ aggregation where every projection and node is DCNv2 (3x3) + BN + ReLU, and
 the stride-4 map.
 
 Inside the model tensors are NCHW in ``channels_last`` memory, so the NHWC
-DCN op takes them with a permute and no copy.  Every DCN site runs
-``ops/dcn_cuda.dcn_v2_fused`` (the CUDA kernel for a CUDA tensor, its plain
-version for a CPU tensor) at the clamp radius the reference's policy gives
-the site (``site_max_dy``).  At 512x512 the 16 calls of one forward go over
-7 site shapes.
+DCN op takes them with a permute and no copy.  In eval mode every DCN site
+runs the om-fused ``ops/dcn_cuda.dcn_v2_fused`` (K1) at the clamp radius
+the reference's inference policy gives the site (``site_max_dy``).  In
+train mode, as the reference with ``train=True``, it runs the offset/mask
+conv as a conv in the compute dtype and then ``ops/dcn_cuda.dcn_v2`` (K2,
+whose gradient is the backward kernel) at the training radius
+(``train_site_max_dy``).  Each is the CUDA kernel for a CUDA tensor and
+its plain version for a CPU tensor.  At 512x512 the 16 calls of one
+forward go over 7 site shapes.
 """
 
 from __future__ import annotations
@@ -24,8 +28,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from centerpose_tpu_torch.models.common import ConvBN, HeadStack
-from centerpose_tpu_torch.ops.dcn_cuda import dcn_v2_fused, site_max_dy
+from centerpose_tpu_torch.models.common import BatchNorm2d, ConvBN, HeadStack
+from centerpose_tpu_torch.ops.dcn_cuda import (dcn_v2, dcn_v2_fused,
+                                               site_max_dy, train_site_max_dy)
 
 
 class _OffsetMaskParams(nn.Module):
@@ -40,9 +45,10 @@ class _OffsetMaskParams(nn.Module):
 
 
 class DCN(nn.Module):
-    """Modulated deformable conv module: offset/mask conv + DCNv2.  The bias
-    stays float32 under a lower compute dtype (``float32_params``): the
-    reference adds it in f32 before the cast to the output type."""
+    """Modulated deformable conv module: offset/mask conv + DCNv2.  Weights
+    are cast to the input's dtype at use; the bias stays float32
+    (``float32_params``): the reference adds it in f32 before the cast to
+    the output type."""
 
     float32_params = ("bias",)
 
@@ -60,11 +66,27 @@ class DCN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         _, _, h, w = x.shape
-        r = site_max_dy(h, w, self.in_features, self.features, self.dcn_impl,
-                        self.max_dy)
-        y = dcn_v2_fused(x.permute(0, 2, 3, 1).contiguous(),
-                         self.conv_offset_mask.weight,
-                         self.conv_offset_mask.bias, self.weight, self.bias, r)
+        dt = x.dtype
+        site = (h, w, self.in_features, self.features, self.dcn_impl,
+                self.max_dy)
+        omw = self.conv_offset_mask.weight.to(dt)
+        omb = self.conv_offset_mask.bias.to(dt)
+        weight = self.weight.to(dt)
+        xn = x.permute(0, 2, 3, 1).contiguous()
+        if not self.training:
+            y = dcn_v2_fused(xn, omw, omb, weight, self.bias,
+                             site_max_dy(*site))
+            return y.permute(0, 3, 1, 2)
+        # the reference's train path: the om conv, rounded to the compute
+        # dtype, then its bias in that dtype; offsets and the sigmoid-ed
+        # mask stay in the compute dtype
+        om = F.conv2d(x, omw.permute(3, 2, 0, 1), padding=1)
+        om = om + omb.view(1, -1, 1, 1)
+        om = om.permute(0, 2, 3, 1)
+        offset = om[..., :18].contiguous()
+        mask = torch.sigmoid(om[..., 18:]).contiguous()
+        y = dcn_v2(xn, offset, mask, weight, self.bias,
+                   train_site_max_dy(*site))
         return y.permute(0, 3, 1, 2)
 
 
@@ -75,7 +97,7 @@ class DeformConv(nn.Module):
                  dcn_max_dy: int = 0):
         super().__init__()
         self.DCN_0 = DCN(in_features, features, dcn_impl, dcn_max_dy)
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        self.BatchNorm_0 = BatchNorm2d(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.BatchNorm_0(self.DCN_0(x)))
@@ -164,8 +186,13 @@ class Tree(nn.Module):
         children = [] if children is None else list(children)
         bottom = (F.max_pool2d(x, self.stride, self.stride)
                   if self.stride > 1 else x)
+        proj = bottom
+        if self.project is not None and (residual is None or self.training):
+            # as the reference, project runs in train mode even where a
+            # residual is given: its BatchNorm statistics advance
+            proj = self.project(bottom)
         if residual is None:
-            residual = self.project(bottom) if self.project is not None else bottom
+            residual = proj
         if self.level_root:
             children.append(bottom)
         if self.levels == 1:
@@ -231,7 +258,8 @@ class IDAUp(nn.Module):
             p = getattr(self, f"proj_{j}")(layers[i])
             f = self.up_factors[j]
             if f > 1:
-                p = bilinear_upsample(p, f, getattr(self, f"up_{j}"))
+                up = getattr(self, f"up_{j}").to(p.dtype)
+                p = bilinear_upsample(p, f, up)
             layers[i] = getattr(self, f"node_{j}")(p + layers[i - 1])
         return layers
 
@@ -286,10 +314,10 @@ class DLASeg(nn.Module):
                             trunk[self.first_level:last_level],
                             [2 ** i for i in range(n)], dcn_impl, dcn_max_dy)
         self.HeadStack_0 = HeadStack(trunk[self.first_level], heads, head_conv)
+        self.compute_dtype = torch.float32  # see models/common.py
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        dtype = self.base.base_layer.Conv_0.weight.dtype
-        x = x.to(dtype).permute(0, 3, 1, 2)
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         feats = self.base(x)
         outs = self.dla_up(feats)
         y = list(outs[: self.last_level - self.first_level])

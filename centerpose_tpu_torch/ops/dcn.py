@@ -16,6 +16,15 @@ f32); the gathered samples are rounded to the input type before the
 product, as the reference's im2col GEMM takes them, and the result is cast
 back to the input type.  The kernel does the same, so the two differ in
 summation order and in where that order moves a rounding.
+
+``dcn_v2`` is also the plain version of the training forward (K2), and its
+autograd the plain version of the backward kernel.  The backward runs in
+f32 as the kernels' does: the samples' rounding passes the gradient
+through unrounded, and the gradients of x, offsets, mask and weight are
+summed in f32 and cast to their input's type once.  The y-clamp passes the
+full gradient where -R <= dy <= R, inclusive, and none outside, as the
+reference kernels' ``clamp_pass`` does (``torch.clamp``'s gradient; JAX's
+``jnp.clip`` gives 0.5 at exactly +-R).
 """
 
 from __future__ import annotations
@@ -66,7 +75,7 @@ def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     x0 = torch.floor(sx)
     wy1 = sy - y0
     wx1 = sx - x0
-    x_flat = x.reshape(b, h * w, cin)
+    x_flat = x.reshape(b, h * w, cin).to(f32)
     samples = None
     for cy, cx, wgt in ((0, 0, (1 - wy1) * (1 - wx1)), (0, 1, (1 - wy1) * wx1),
                         (1, 0, wy1 * (1 - wx1)), (1, 1, wy1 * wx1)):
@@ -75,15 +84,32 @@ def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         valid = (yc >= 0) & (yc <= h - 1) & (xc >= 0) & (xc <= w - 1)
         idx = (yc.clamp(0, h - 1) * w + xc.clamp(0, w - 1)).long()
         idx = idx.reshape(b, h * w * 9, 1).expand(-1, -1, cin)
-        gathered = torch.gather(x_flat, 1, idx).to(f32)  # [B, HW9, Cin]
+        gathered = torch.gather(x_flat, 1, idx)  # [B, HW9, Cin]
         wfull = (wgt * valid.to(f32) * m).reshape(b, h * w * 9, 1)
         term = gathered * wfull
         samples = term if samples is None else samples + term
-    cols = samples.reshape(b * h * w, 9 * cin).to(x.dtype).to(f32)
+    cols = samples.reshape(b * h * w, 9 * cin)
+    # rounded to the input type in value, unrounded in the gradient
+    cols = cols + (cols.detach().to(x.dtype).to(f32) - cols.detach())
     out = cols @ weight.to(f32).reshape(9 * cin, cout)
     if bias is not None:
         out = out + bias.to(f32)
     return out.reshape(b, h, w, cout).to(x.dtype)
+
+
+def dcn_v2_backward_plain(x: torch.Tensor, offset: torch.Tensor,
+                          mask: torch.Tensor, weight: torch.Tensor,
+                          ct: torch.Tensor, max_dy: Optional[float]):
+    """Plain version of the backward kernel: the gradients of ``dcn_v2`` at
+    (x, offset, mask, weight, bias) for the cotangent ``ct`` [B,H,W,Cout],
+    by autograd, each in its input's dtype (dbias float32)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, offset, mask,
+                                                        weight)]
+        bias = torch.zeros(weight.shape[-1], device=x.device,
+                           requires_grad=True)
+        y = dcn_v2(*leaves, bias, max_dy)
+        return torch.autograd.grad(y, [*leaves, bias], ct.to(y.dtype))
 
 
 def offset_mask(x: torch.Tensor, omw: torch.Tensor,

@@ -1,11 +1,15 @@
-"""Image geometry: the crop affine, its inverse on predictions, and the
-warp the detector's pre-process applies.
+"""Image geometry, gaussian target splatting and photometric augmentation.
 
-Counterpart of the geometry part of ``centerpose_tpu/ops/image.py``
-(``get_affine_transform``, ``affine_transform``, ``transform_preds``,
-``FLIP_IDX``), numpy on the host.  ``warp_affine`` replaces the
-``cv2.warpAffine`` call of the JAX detector with tensor ops on the device:
-bilinear sampling with a zero border, from the same 2x3 matrix.
+Counterpart of ``centerpose_tpu/ops/image.py``: the crop affine, its
+inverse on predictions (``get_affine_transform``, ``affine_transform``,
+``transform_preds``, ``FLIP_IDX``, ``flip_joints``), the CornerNet
+gaussians of the training targets (``gaussian_radius``, ``gaussian2d``,
+``draw_umich_gaussian``, ``draw_dense_reg``) and the colour augmentation
+(``color_aug``, ``color_aug_coeffs``, ``COLOR_AUG_IDENTITY``), numpy on the
+host and copied so that they stay bit-exact given the same
+``np.random.Generator`` stream.  ``warp_affine`` replaces the
+``cv2.warpAffine`` calls of the JAX package with tensor ops: bilinear
+sampling with a zero border, from the same 2x3 matrix.
 """
 
 from __future__ import annotations
@@ -140,3 +144,204 @@ def warp_affine(image: torch.Tensor, trans: np.ndarray, out_size) -> torch.Tenso
         idx = (yc.clamp(0, h - 1) * w + xc.clamp(0, w - 1)).long().reshape(-1)
         out += src[idx] * (wgt * valid.float()).reshape(-1, 1)
     return out.reshape(out_h, out_w, c)
+
+
+# ---------------------------------------------------------------------------
+# Gaussian target splatting (CornerNet-style)
+# ---------------------------------------------------------------------------
+
+
+def gaussian_radius(det_size, min_overlap: float = 0.7) -> float:
+    """CornerNet 3-case quadratic radius so a shifted box keeps IoU >= min_overlap.
+
+    """
+    height, width = det_size
+
+    a1 = 1.0
+    b1 = height + width
+    c1 = width * height * (1.0 - min_overlap) / (1.0 + min_overlap)
+    sq1 = np.sqrt(b1 ** 2 - 4 * a1 * c1)
+    r1 = (b1 + sq1) / 2.0
+
+    a2 = 4.0
+    b2 = 2.0 * (height + width)
+    c2 = (1.0 - min_overlap) * width * height
+    sq2 = np.sqrt(b2 ** 2 - 4 * a2 * c2)
+    r2 = (b2 + sq2) / 2.0
+
+    a3 = 4.0 * min_overlap
+    b3 = -2.0 * min_overlap * (height + width)
+    c3 = (min_overlap - 1.0) * width * height
+    sq3 = np.sqrt(b3 ** 2 - 4 * a3 * c3)
+    r3 = (b3 + sq3) / 2.0
+    return min(r1, r2, r3)
+
+
+def gaussian2d(shape, sigma: float = 1.0) -> np.ndarray:
+    """Unnormalized 2D gaussian patch of the given (odd) shape."""
+    m, n = [(s - 1.0) / 2.0 for s in shape]
+    y, x = np.ogrid[-m : m + 1, -n : n + 1]
+    h = np.exp(-(x * x + y * y) / (2.0 * sigma * sigma))
+    h[h < np.finfo(h.dtype).eps * h.max()] = 0
+    return h
+
+
+def draw_umich_gaussian(heatmap: np.ndarray, center, radius: int, k: float = 1.0) -> np.ndarray:
+    """Max-composite a gaussian of the given integer radius at integer ``center``.
+
+    In-place on ``heatmap`` (2D).  sigma = diameter / 6 as in the reference.
+    """
+    diameter = 2 * radius + 1
+    gaussian = gaussian2d((diameter, diameter), sigma=diameter / 6.0)
+
+    x, y = int(center[0]), int(center[1])
+    height, width = heatmap.shape[0:2]
+
+    left, right = min(x, radius), min(width - x, radius + 1)
+    top, bottom = min(y, radius), min(height - y, radius + 1)
+
+    masked_heatmap = heatmap[y - top : y + bottom, x - left : x + right]
+    masked_gaussian = gaussian[
+        radius - top : radius + bottom, radius - left : radius + right
+    ]
+    if min(masked_gaussian.shape) > 0 and min(masked_heatmap.shape) > 0:
+        np.maximum(masked_heatmap, masked_gaussian * k, out=masked_heatmap)
+    return heatmap
+
+
+def draw_dense_reg(
+    regmap: np.ndarray,
+    heatmap: np.ndarray,
+    center,
+    value,
+    radius: int,
+    is_offset: bool = False,
+) -> np.ndarray:
+    """Dense regression target splat (reference draw_dense_reg; for DENSE_HP)."""
+    diameter = 2 * radius + 1
+    gaussian = gaussian2d((diameter, diameter), sigma=diameter / 6.0)
+    value = np.asarray(value, dtype=np.float32).reshape(-1, 1, 1)
+    dim = value.shape[0]
+    reg = np.ones((dim, diameter, diameter), dtype=np.float32) * value
+    if is_offset and dim == 2:
+        delta = np.arange(diameter) - radius
+        reg[0] = reg[0] - delta.reshape(1, -1)
+        reg[1] = reg[1] - delta.reshape(-1, 1)
+
+    x, y = int(center[0]), int(center[1])
+    height, width = heatmap.shape[0:2]
+
+    left, right = min(x, radius), min(width - x, radius + 1)
+    top, bottom = min(y, radius), min(height - y, radius + 1)
+
+    masked_heatmap = heatmap[y - top : y + bottom, x - left : x + right]
+    masked_regmap = regmap[:, y - top : y + bottom, x - left : x + right]
+    masked_gaussian = gaussian[
+        radius - top : radius + bottom, radius - left : radius + right
+    ]
+    masked_reg = reg[:, radius - top : radius + bottom, radius - left : radius + right]
+    if min(masked_gaussian.shape) > 0 and min(masked_heatmap.shape) > 0:
+        idx = (masked_gaussian >= masked_heatmap).reshape(1, *masked_gaussian.shape)
+        masked_regmap = (1 - idx) * masked_regmap + idx * masked_reg
+    regmap[:, y - top : y + bottom, x - left : x + right] = masked_regmap
+    return regmap
+
+
+# ---------------------------------------------------------------------------
+# Photometric augmentation (PCA lighting + brightness/contrast/saturation)
+# ---------------------------------------------------------------------------
+
+# COCO eigen decomposition used by the reference (lib/utils/image.py).
+_EIG_VAL = np.array([0.2141788, 0.01817699, 0.00341571], dtype=np.float32)
+_EIG_VEC = np.array(
+    [
+        [-0.58752847, -0.69563484, 0.41340352],
+        [-0.5832747, 0.00994535, -0.81221408],
+        [-0.56089297, 0.71832671, 0.41158938],
+    ],
+    dtype=np.float32,
+)
+
+
+def _grayscale(image: np.ndarray) -> np.ndarray:
+    return image @ np.array([0.299, 0.587, 0.114], dtype=np.float32)
+
+
+def _blend(alpha: float, image1: np.ndarray, image2: np.ndarray) -> np.ndarray:
+    image1 *= alpha
+    image1 += (1.0 - alpha) * image2
+    return image1
+
+
+def color_aug(rng: np.random.Generator, image: np.ndarray) -> np.ndarray:
+    """In-place photometric aug on a float image in [0, 1], RGB.
+
+    Order matches the reference: random shuffle of (brightness, contrast,
+    saturation) each with strength 0.4, then PCA lighting noise (alpha 0.1).
+    """
+    gs = _grayscale(image)
+    gs_mean = gs.mean()
+
+    def brightness(img):
+        return _blend(1.0 + rng.uniform(-0.4, 0.4), img, 0.0)
+
+    def contrast(img):
+        return _blend(1.0 + rng.uniform(-0.4, 0.4), img, gs_mean)
+
+    def saturation(img):
+        return _blend(1.0 + rng.uniform(-0.4, 0.4), img, gs[..., None])
+
+    fns = [brightness, contrast, saturation]
+    rng.shuffle(fns)
+    for f in fns:
+        image = f(image)
+
+    # PCA lighting
+    alpha = rng.normal(scale=0.1, size=(3,)).astype(np.float32)
+    image += _EIG_VEC @ (_EIG_VAL * alpha)
+    return image
+
+
+def color_aug_coeffs(rng: np.random.Generator) -> np.ndarray:
+    """Sample ``color_aug`` as 6 affine coefficients for device-side replay.
+
+    Because ``gs``/``gs_mean`` are computed ONCE from the pre-aug image, the
+    shuffled brightness/contrast/saturation chain composes into
+    ``img' = A*img + c_gs*gs[..,None] + c_mean*gs_mean + pca`` — so the
+    compact wire (train.wire) ships the un-augmented uint8 warp plus these
+    [A, c_gs, c_mean, pca_r, pca_g, pca_b] floats and the jitted step
+    replays the EXACT host augmentation (same rng stream: shuffle, then one
+    uniform per op in execution order, then the PCA normal — matching
+    ``color_aug`` draw for draw)."""
+    order = [0, 1, 2]  # brightness, contrast, saturation
+    rng.shuffle(order)
+    a_tot, c_gs, c_mean = 1.0, 0.0, 0.0
+    for op in order:
+        a = 1.0 + rng.uniform(-0.4, 0.4)
+        a_tot *= a
+        c_gs *= a
+        c_mean *= a
+        if op == 1:
+            c_mean += 1.0 - a
+        elif op == 2:
+            c_gs += 1.0 - a
+    alpha = rng.normal(scale=0.1, size=(3,)).astype(np.float32)
+    pca = _EIG_VEC @ (_EIG_VAL * alpha)
+    return np.concatenate(
+        [np.array([a_tot, c_gs, c_mean], np.float32), pca.astype(np.float32)]
+    )
+
+
+# identity color aug (A=1, no gs/mean/PCA terms) for non-augmented samples
+COLOR_AUG_IDENTITY = np.array([1, 0, 0, 0, 0, 0], np.float32)
+
+
+def flip_joints(pts: np.ndarray, width: float) -> np.ndarray:
+    """Horizontally flip [..., J, >=2] joint coords and swap L/R joints."""
+    pts = pts.copy()
+    pts[..., 0] = width - pts[..., 0] - 1
+    for a, b in FLIP_IDX:
+        tmp = pts[..., a, :].copy()
+        pts[..., a, :] = pts[..., b, :]
+        pts[..., b, :] = tmp
+    return pts

@@ -14,7 +14,9 @@ dots and renaming the leaf:
 * BatchNorm ``scale`` / ``bias`` / ``mean`` / ``var`` -> ``weight`` /
   ``bias`` / ``running_mean`` / ``running_var`` (eps 1e-5 on both sides).
 
-Arrays are cast to float32.  Only numpy reads the file.
+Arrays are cast to float32.  Only numpy reads the file.  ``npz_arrays``
+maps the other way, for comparing a port's parameters, gradients or
+statistics with the JAX tree key by key.
 """
 
 from __future__ import annotations
@@ -71,6 +73,19 @@ def state_dict_from_npz(path: str) -> Dict[str, torch.Tensor]:
             if name in out:
                 raise KeyError(f"two snapshot keys map to {name!r}")
             out[name] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def npz_arrays(tensors: Dict[str, torch.Tensor], npz_keys) -> Dict[str, np.ndarray]:
+    """For each snapshot key, the float32 numpy array in the snapshot's
+    layout of the tensor that key maps to in ``tensors`` (a state dict, or
+    the gradients keyed like it): the inverse of ``state_dict_from_npz``."""
+    out = {}
+    for key in npz_keys:
+        arr = tensors[torch_key(key)].detach().float().cpu().numpy()
+        if _is_conv_kernel(key):
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        out[key] = arr
     return out
 
 

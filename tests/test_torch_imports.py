@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, no reference package, no cv2 or yaml on
-its main path; CUDA is never replaced quietly by the CPU."""
+"""The port stands alone: no JAX, flax, optax, reference package, cv2 or
+yaml on its main paths (inference and training); CUDA is never replaced
+quietly by the CPU."""
 
 import re
 import subprocess
@@ -35,7 +36,20 @@ images, meta = det.pre_process(img)
 dets = det.run_batch(images.numpy())
 assert dets.shape == (1, 100, 40), dets.shape
 assert np.isfinite(dets).all()
-bad = [m for m in ("jax", "flax", "cv2", "yaml", "centerpose_tpu")
+# the training slice: encode (train augmentation), losses, one step
+from centerpose_tpu_torch.data.encode import encode_example, stack_batch
+from centerpose_tpu_torch.data.synthetic import make_person
+from centerpose_tpu_torch.train.trainer import Trainer
+tcfg = update_config(cfg, {"model": {"input_res": 64, "output_res": 16},
+                           "train": {"wire": "compact"},
+                           "dataset": {"max_objs": 4}})
+rng = np.random.default_rng(0)
+batch = stack_batch([encode_example(img, [make_person(rng, 160, 120)[0]],
+                                    tcfg, rng) for _ in range(2)])
+trainer = Trainer(tcfg, state_dict_from_npz(sys.argv[1]), device="cpu")
+stats = trainer.train_step(batch)
+assert np.isfinite(float(stats["loss"])) and trainer.optimizer.updates == 1
+bad = [m for m in ("jax", "flax", "optax", "cv2", "yaml", "centerpose_tpu")
        if sys.modules.get(m) is not None]
 assert not bad, bad
 print("GUARD_OK", len(names))
@@ -99,21 +113,37 @@ class _FakeCudaTensor:
     def is_contiguous(self):
         return True
 
+    def contiguous(self):
+        return self
+
+    def to(self, dtype):
+        assert dtype == self.dtype
+        return self
+
 
 def test_kernel_wrapper_raises_for_cuda_without_library(monkeypatch):
     from centerpose_tpu_torch.ops import dcn_cuda as dc
 
-    monkeypatch.setattr(dc, "_lib", [])
+    monkeypatch.setattr(dc, "_libs", {})
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setenv("CUDA_PATH", "/nonexistent")
     monkeypatch.setenv("PATH", "/nonexistent")
     monkeypatch.setattr(dc.os.path, "isfile", lambda p: False)
     monkeypatch.setattr(dc, "library_path",
-                        lambda: Path("/nonexistent/libcp_dcn.so"))
-    args = [_FakeCudaTensor(torch.zeros(s)) for s in
-            ((1, 8, 16, 8), (3, 3, 8, 27), (27,), (3, 3, 8, 4), (4,))]
+                        lambda name: Path(f"/nonexistent/libcp_{name}.so"))
+
+    def fake(*shapes):
+        return [_FakeCudaTensor(torch.zeros(s)) for s in shapes]
+
+    x, w, bias, ct = fake((1, 8, 16, 8), (3, 3, 8, 4), (4,), (1, 8, 16, 4))
+    omw, omb, off, mask = fake((3, 3, 8, 27), (27,), (1, 8, 16, 18),
+                               (1, 8, 16, 9))
     dc.reset_launch_counts()
-    with pytest.raises(RuntimeError, match="nvcc"):
-        # the plain version is never taken for a CUDA tensor
-        dc.dcn_v2_fused(*args, None)
-    assert dc.dcn_v2_fused.launches == 0
+    # the plain version is never taken for a CUDA tensor: K1, K2 and the
+    # backward each go for the library, which cannot be built here
+    for call in (lambda: dc.dcn_v2_fused(x, omw, omb, w, bias, None),
+                 lambda: dc.dcn_v2(x, off, mask, w, bias, 6),
+                 lambda: dc.dcn_v2_backward(x, off, mask, w, ct, 6)):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            call()
+    assert all(fn.launches == 0 for fn in dc.COUNTED)
