@@ -13,9 +13,10 @@ them once (``to_compute_dtype``), after which the per-use cast is free.
 BatchNorm parameters and statistics stay float32 either way.
 
 BatchNorm: torch momentum 0.1 is flax momentum 0.9; eps is 1e-5.  In train
-mode the port's ``BatchNorm2d`` follows flax, not torch: it normalises with
-the biased batch variance (as both do) and also updates ``running_var``
-with the biased one (torch would use the unbiased, n/(n-1) larger).
+mode the port's ``BatchNorm2d`` follows flax, not torch: one pair of batch
+statistics, with flax's ``E[x^2] - E[x]^2`` variance, both normalises and
+updates ``running_var`` (torch would update it with the unbiased variance,
+n/(n-1) larger, and normalise with its own variance formula).
 """
 
 from __future__ import annotations
@@ -39,13 +40,41 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+class _TrainBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over (N, H, W) with flax's statistics
+    (``use_fast_variance``): ``mean = E[x]`` and the biased ``var =
+    max(E[x^2] - E[x]^2, 0)`` in (at least) float32.  The output is
+    ``(x - mean) * rsqrt(var + eps) * scale + bias`` (torch's batch norm on
+    those statistics, computed in float32 and returned in x's dtype); the
+    gradient is torch's train-mode batch-norm backward on the same mean and
+    ``rsqrt(var + eps)``.  Returns ``(y, mean, var)``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean((0, 2, 3))
+        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
+        ctx.eps = eps
+        ctx.mark_non_differentiable(mean, var)
+        return F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps), \
+            mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        gx, gw, gb = torch.ops.aten.native_batch_norm_backward(
+            gy, x, weight, None, None, mean, invstd, True, ctx.eps,
+            list(ctx.needs_input_grad[:3]))
+        return gx, gw, gb, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm with flax's train-mode semantics (``flax.linen.BatchNorm``,
-    ``use_fast_variance``): statistics in float32 over (N, H, W), the
-    output normalised with the biased batch variance, and the running
-    statistics updated under ``no_grad`` as ``ra = m * ra + (1 - m) *
-    batch`` with m = 0.9 and the biased variance ``E[x^2] - E[x]^2``
-    (clipped at 0).  Eval mode is ``nn.BatchNorm2d``'s."""
+    """BatchNorm with flax's train-mode arithmetic (``flax.linen.BatchNorm``,
+    ``use_fast_variance``): one pair of batch statistics, ``E[x]`` and
+    ``E[x^2] - E[x]^2`` in float32 (``_TrainBatchNorm``), both normalises
+    and updates the running statistics under ``no_grad`` as ``ra = m * ra +
+    (1 - m) * batch`` with m = 0.9.  Eval mode is ``nn.BatchNorm2d``'s."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
@@ -53,16 +82,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        y, mean, var = _TrainBatchNorm.apply(x, self.weight, self.bias,
+                                             self.eps)
         with torch.no_grad():
-            xf = x.float()
-            mean = xf.mean((0, 2, 3))
-            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
             m = 1.0 - self.momentum
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
             self.running_var.mul_(m).add_(var, alpha=1.0 - m)
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        return y
 
 
 class ConvBN(nn.Module):

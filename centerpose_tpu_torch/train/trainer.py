@@ -141,15 +141,17 @@ class Trainer:
 
     ``cfg`` names the model and the training knobs; ``state_dict`` (from
     ``weights.state_dict_from_npz``) sets the starting weights, else the
-    modules' own random init under ``torch.manual_seed(seed)``."""
+    modules' own random init, seeded from ``cfg.train.seed`` on a forked
+    RNG (the process's RNG is left as it was)."""
 
     def __init__(self, cfg, state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  device: str | torch.device = "cuda",
-                 steps_per_epoch: int = 1000, seed: int = 0):
+                 steps_per_epoch: int = 1000):
         self.cfg = cfg
         self.device = resolve_device(device)
-        torch.manual_seed(seed)
-        model = create_model(cfg)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(cfg.train.seed)
+            model = create_model(cfg)
         if state_dict is not None:
             load_state_dict(model, state_dict)
         self.model = set_compute_dtype(

@@ -94,14 +94,14 @@ TOL_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
 GRAD_NAMES = ("dx", "doffset", "dmask", "dW", "dbias")
 # Training model check (float32, 512x512, batch 2, kernel vs plain path):
 # the loss; each BatchNorm statistic; each parameter's gradient by its
-# relative L2 error.  A pre-ReLU value within the paths' f32 rounding of
-# zero passes the gradient in one path and not the other, and a bilinear
-# sample within it of a cell edge moves to the next cell: such pixels move
-# their layer's gradient, and those upstream, by up to a few percent at a
-# few elements, so the gradients are held by their L2 error.
+# relative L2 error.  The two paths differ by the kernels' f32 summation
+# order (dx and dW by atomics), which the BatchNorms and ReLUs between the
+# 16 sites carry upstream: the worst tensor read 1.72e-4 on an H100 (median
+# 2.69e-5).  A site whose backward is wrong by a percent or more moves that
+# site's own tensors by as much, ten times the limit.
 TOL_TRAIN_LOSS = 1e-5
 TOL_TRAIN_STATS = 1e-4
-TOL_TRAIN_GRAD_L2 = 5e-2
+TOL_TRAIN_GRAD_L2 = 1e-3
 TRAIN_BATCH = 8  # bench.py's train_batch
 
 
@@ -497,10 +497,8 @@ def trace(det, batch):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = device_rows(prof)
+    check(bool(rows), "serving trace: the profiler recorded no device time")
     busy = sum(r[0] for r in rows)
-    if not rows:
-        say("  trace: the profiler recorded no device time (not measured)")
-        return
     k1 = sum(r[0] for r in rows if "dcn_" in r[2])
     say(f"  trace batch 8: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
         f"wall (idle {1 - busy / wall_ms:.1%}); K1 kernels {k1:.3f} ms "
@@ -801,10 +799,7 @@ def train_trace(trainer, batch):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = device_rows(prof)
-    if not rows:
-        say("  train trace: the profiler recorded no device time "
-            "(not measured)")
-        return
+    check(bool(rows), "training trace: the profiler recorded no device time")
     busy = sum(r[0] for r in rows)
     k2 = sum(r[0] for r in rows if "dcn_gemm" in r[2])
     bwd = sum(r[0] for r in rows if "dcn_bwd" in r[2])

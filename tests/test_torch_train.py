@@ -163,9 +163,14 @@ def _flat(tree, group, prefix=""):
 
 @pytest.fixture(scope="module")
 def step64():
+    return _step64()
+
+
+def _step64():
     """One train step of dla_34 at 64x64, batch 2, f32, dcn_impl=xla, from
     the snapshot, on a compact-wire batch of synthetic persons, in both
-    packages: (loss, stats, grads, params and batch_stats after it) each."""
+    packages: (loss, stats, grads, params and batch_stats after it) each,
+    and the reference's gradients in float64."""
     jcfg = jupdate(jax_cfg(64, "xla"), OV)
     tcfg = update_config(torch_cfg(64, "xla"), OV)
     rng = np.random.default_rng(0)
@@ -195,10 +200,29 @@ def step64():
     jbatch = {k: jnp.asarray(v) for k, v in batch.items() if k not in "cs"}
     (_, (jstats, jbs)), jgrads = jax.jit(jax.value_and_grad(
         loss_fn, has_aux=True))(var["params"], var["batch_stats"], jbatch)
+
+    # The same gradients with the reference's model in float64 (the heads
+    # cast to f32 for the losses, as the model does): the yardstick of
+    # test_train_step_grads_match_jax.
+    model64 = model.clone(dtype=jnp.float64)
+
+    def loss64(params, bs, b):
+        b = j_unpack(b, jcfg)
+        out, _ = model64.apply({"params": params, "batch_stats": bs},
+                               b["input"].astype(jnp.float64), train=True,
+                               mutable=["batch_stats"])
+        out = {k: v.astype(jnp.float32) for k, v in out.items()}
+        return jlosses.multi_pose_loss(out, b, jcfg)[0]
+
+    with jax.enable_x64(True):
+        var64 = jax.tree_util.tree_map(
+            lambda a: jnp.asarray(np.asarray(a), jnp.float64), var)
+        jgrads64 = _flat(jax.jit(jax.grad(loss64))(
+            var64["params"], var64["batch_stats"], jbatch), "params")
     tx = j_make_optimizer(jcfg, 1000)
     upd, _ = tx.update(jgrads, tx.init(var["params"]), var["params"])
     jax_side = {"stats": {k: float(v) for k, v in jstats.items()},
-                "grads": _flat(jgrads, "params"),
+                "grads": _flat(jgrads, "params"), "grads64": jgrads64,
                 "params": _flat(optax.apply_updates(var["params"], upd),
                                 "params"),
                 "batch_stats": _flat(jbs, "batch_stats")}
@@ -237,27 +261,23 @@ def test_train_step_batch_stats_match_jax(step64):
 
 
 def test_train_step_grads_match_jax(step64):
-    """Every parameter's gradient.  A ReLU whose input sits within the f32
-    rounding of the two forwards of zero (at 64x64 some pre-ReLU values are
-    ~1e-5) passes the gradient in one package and not the other; the
-    bilinear sample of a DCN tap that sits as close to a cell edge moves to
-    the next cell.  Each such pixel moves its layer's gradient and those
-    upstream of it by up to a few percent at a few elements, so the body is
-    held by each tensor's relative L2 error.  The heads, downstream of all
-    of that, are held elementwise; the DCN biases feed BatchNorm on batch
-    statistics, so their gradient is zero up to rounding on both sides."""
+    """Every parameter's gradient, held to 1e-4 of its largest element
+    against the reference's gradient computed in float64.  The float64 run
+    is the yardstick because the reference's own float32 run is far from
+    it here: at 64x64, batch 2 (BatchNorm on 8 values at the 2x2 maps), the
+    JAX f32 gradients differ from the JAX f64 ones by up to 2.2e-2 in
+    relative L2, the port's f32 gradients by at most 1.5e-5.  The DCN
+    biases feed BatchNorm on batch statistics, so their gradient is zero up
+    to rounding on both sides."""
     port, ref = step64
-    g_all = max(np.abs(v).max() for v in ref["grads"].values())
-    for k, want in ref["grads"].items():
+    g_all = max(np.abs(v).max() for v in ref["grads64"].values())
+    for k, want in ref["grads64"].items():
         got = port["grads"][k]
         if "['DCN_0']['bias']" in k:
             assert np.abs(got).max() < 1e-5 * g_all, k
             assert np.abs(want).max() < 1e-5 * g_all, k
-        elif "HeadStack_0" in k:
-            assert rel_err(got, want) < 1e-3, k
         else:
-            l2 = np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
-            assert l2 < 5e-2, k
+            assert rel_err(got, want) < 1e-4, k
 
 
 def test_train_step_adam_update_matches_jax(step64):
@@ -310,3 +330,130 @@ def test_eval_step_matches_jax(step64):
     for k, v in want.items():  # f32, eval-mode BatchNorm: rounding only
         assert abs(float(got[k]) - float(v)) <= 1e-5 * max(abs(float(v)),
                                                             1.0), k
+
+
+def test_trainer_random_init_is_seeded_by_the_config():
+    """Without snapshot weights the model's random init is drawn from
+    ``cfg.train.seed`` on a forked RNG: two trainers of one config start
+    equal, another seed starts elsewhere, and the process's RNG stream is
+    the one it would have been without them."""
+    cfg = torch_cfg(64, "xla")
+    torch.manual_seed(5)
+    want = torch.rand(4)
+    torch.manual_seed(5)
+    a = Trainer(cfg, device="cpu").model.state_dict()
+    b = Trainer(cfg, device="cpu").model.state_dict()
+    assert torch.equal(torch.rand(4), want)
+    c = Trainer(update_config(cfg, {"train": {"seed": cfg.train.seed + 1}}),
+                device="cpu").model.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not all(torch.equal(a[k], c[k]) for k in a)
+
+
+def _grad_gaps(got, want):
+    """(worst relative L2 error, worst elementwise error of a tensor's max)
+    of ``got`` against ``want`` over every gradient but the DCN biases'."""
+    keys = [k for k in want if "['DCN_0']['bias']" not in k]
+    l2 = max(np.linalg.norm(got[k] - want[k])
+             / max(np.linalg.norm(want[k]), 1e-30) for k in keys)
+    return l2, max(rel_err(got[k], want[k]) for k in keys)
+
+
+if __name__ == "__main__":
+    # The readings behind test_train_step_grads_match_jax: how far the
+    # float32 steps' gradients lie from the reference's float64 ones, for
+    # the reference, the port, and the port with torch's own BatchNorm
+    # normalisation (F.batch_norm) in place of flax's arithmetic.
+    # From the repository root: PYTHONPATH=. python tests/test_torch_train.py
+    import torch.nn.functional as F
+
+    from centerpose_tpu_torch.models import common
+
+    jax.config.update("jax_platforms", "cpu")
+    port, ref = _step64()
+    g64 = ref["grads64"]
+    rows = [("JAX f32", ref["grads"], g64), ("port f32", port["grads"], g64),
+            ("port f32 vs JAX f32", port["grads"], ref["grads"])]
+
+    def torch_batch_norm(self, x):
+        if not self.training:
+            return torch.nn.BatchNorm2d.forward(self, x)
+        with torch.no_grad():
+            xf = x.float()
+            mean = xf.mean((0, 2, 3))
+            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+            self.running_var.mul_(0.9).add_(var, alpha=0.1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                            0.0, self.eps)
+
+    common.BatchNorm2d.forward = torch_batch_norm
+    rows.append(("port f32, F.batch_norm", _step64()[0]["grads"], g64))
+    for name, got, want in rows:
+        l2, mx = _grad_gaps(got, want)
+        vs = "" if " vs " in name else " vs JAX f64"
+        print(f"{name}{vs}: worst L2 {l2:.3e}, worst elementwise {mx:.3e}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_batchnorm_matches_flax(dtype):
+    """The port's train-mode ``BatchNorm2d`` against flax's ``BatchNorm``
+    (``use_running_average=False``, momentum 0.9, eps 1e-5) on one NHWC
+    input and cotangent: the output, the running statistics after the
+    update, and the gradients of the input, scale and bias.  float32:
+    rounding only (1e-5 of each max).  bfloat16: the output and dx are
+    rounded to bf16 on both sides, so they may differ by a bf16 ulp of a
+    value, at most 2^-7 of it; the statistics and the parameter gradients
+    stay f32 sums of f32 products of the same bf16 inputs (1e-4)."""
+    import flax.linen as fnn
+
+    from centerpose_tpu_torch.models.common import BatchNorm2d
+
+    r = np.random.default_rng(7)
+    b, h, w, c = 2, 4, 4, 16
+    x = (r.normal(size=(b, h, w, c)) + 0.5).astype(np.float32)
+    ct = r.normal(size=(b, h, w, c)).astype(np.float32)
+    scale = r.uniform(0.5, 1.5, c).astype(np.float32)
+    bias = r.normal(size=c).astype(np.float32)
+    ra_mean = r.normal(size=c).astype(np.float32)
+    ra_var = r.uniform(0.5, 2.0, c).astype(np.float32)
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+
+    bn = fnn.BatchNorm(use_running_average=False, momentum=0.9,
+                       epsilon=1e-5, dtype=jdt)
+
+    def f(xj, params):
+        return bn.apply({"params": params,
+                         "batch_stats": {"mean": ra_mean, "var": ra_var}},
+                        xj, mutable=["batch_stats"])
+
+    xj = jnp.asarray(x, jdt)
+    (yj, mut), vjp = jax.vjp(f, xj, {"scale": scale, "bias": bias})
+    dxj, dpj = vjp((jnp.asarray(ct, yj.dtype),
+                    jax.tree_util.tree_map(jnp.zeros_like, mut)))
+
+    m = BatchNorm2d(c).train()
+    with torch.no_grad():
+        m.weight.copy_(torch.from_numpy(scale))
+        m.bias.copy_(torch.from_numpy(bias))
+        m.running_mean.copy_(torch.from_numpy(ra_mean))
+        m.running_var.copy_(torch.from_numpy(ra_var))
+    xt = (torch.from_numpy(x).to(tdt).permute(0, 3, 1, 2)
+          .contiguous(memory_format=torch.channels_last).requires_grad_())
+    y = m(xt)
+    assert y.dtype == tdt
+    y.backward(torch.from_numpy(ct).to(tdt).permute(0, 3, 1, 2))
+
+    def nhwc(t):
+        return t.detach().float().permute(0, 2, 3, 1).numpy()
+
+    tol = 1e-5 if dtype == "float32" else 2 ** -7
+    assert rel_err(nhwc(y), np.asarray(yj, np.float32)) < tol
+    assert rel_err(nhwc(xt.grad), np.asarray(dxj, np.float32)) < tol
+    tol_f32 = 1e-5 if dtype == "float32" else 1e-4
+    stats = mut["batch_stats"]
+    assert rel_err(m.running_mean.numpy(), stats["mean"]) < tol_f32
+    assert rel_err(m.running_var.numpy(), stats["var"]) < tol_f32
+    assert rel_err(m.weight.grad.numpy(), dpj["scale"]) < tol_f32
+    assert rel_err(m.bias.grad.numpy(), dpj["bias"]) < tol_f32
