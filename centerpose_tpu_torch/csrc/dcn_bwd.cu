@@ -1,85 +1,123 @@
-// Modulated deformable convolution v2 (DCNv2) backward for Hopper.
+// Modulated deformable convolution v2 (DCNv2) backward for Hopper,
+// deterministic.
 //
 // Replaces the three TPU backward kernels of
 // centerpose_tpu/ops/dcn_pallas.py: _dcn_pallas_grouped_bwd_impl (K3, the
-// fused backward of the row-grouped sites, W in {16, 32, 64}; kernel body
+// fused backward of the row-grouped sites, W in {16, 32, 64}; body
 // _dcn_grouped_bwd_kernel), and the split backward of the W = 128 sites,
-// _dcn_rowmajor_grads_impl (K4, pass A: doffset, dmask, dW, dbias; body
+// _dcn_rowmajor_grads_impl (K4, pass A: doffset, dmask, dW; body
 // _dcn_rowmajor_grads_kernel) and _dcn_rowmajor_dx_impl (K5, pass B: dx;
-// body _dcn_rowmajor_dx_kernel).  One launch computes every gradient of
-// the forward
+// body _dcn_rowmajor_dx_kernel).  One call computes the gradients of the
+// forward
 //
-//   y = bias + sum_k W_k^T . m_k . bilinear(x, p + p_k + (clip(dy_k,-R,R), dx_k))
+// y = bias + sum_k W_k^T . m_k . bilinear(x, p + p_k + (clip(dy_k,-R,R), dx_k))
 //
 // for a cotangent ct [B,H,W,Cout]:
 //
 //   dcols_k = ct . W_k^T                        [P, Cin] per tap k
-//   dx     += transpose of the bilinear gather of m_k . dcols_k (4 corners,
+//   dx      = transpose of the bilinear gather of m_k . dcols_k (4 corners,
 //             zero outside the image)
 //   dmask_k = sum_c dcols_k . sample_k          (sample before the mask)
-//   ddy_k   = m_k . sum_c dcols_k . d(sample_k)/dy, 0 where |dy| > R
+//   ddy_k   = m_k . sum_c dcols_k . d(sample_k)/dy . clamp'(dy_k)
 //   ddx_k   = m_k . sum_c dcols_k . d(sample_k)/dx
 //   dW_k    = cols_k^T . ct                     (cols = m_k . sample_k, the
-//                                                forward's im2col column)
-//   dbias   = sum_p ct
+//                                                forward's im2col column,
+//                                                rounded as it rounds it)
 //
-// The clamp passes the gradient where -R <= dy <= R inclusive, as the TPU
-// kernels' clamp_pass does.  cols are recomputed from x and the offsets,
-// never stored.  The TPU kernels split this work by width and turn the
-// gather and its transpose into one-hot and band matrix products only
-// because the TPU's vector unit cannot gather across lanes and its VMEM
-// must hold the whole slab (docs/DCN.md); on Hopper one design takes every
-// width.  K3's "compact" mode only rounds x and W to bf16 to fit VMEM;
-// under bf16 compute they already are bf16, so it has no counterpart here.
+// dbias = sum_p ct is one fixed-order PyTorch reduction in the wrapper, as
+// the reference sums it in XLA outside its kernels.  clamp'(dy) is 1 where
+// |dy| < R, 0 where |dy| > R, and `edge` at exactly |dy| = R: 1 where the
+// reference runs its backward kernels (their clamp_pass), 0.5 where it
+// falls back to the VJP of jnp.clip (the caller picks it per site).
 //
-// Design (the simple one).  A block owns 64 pixels and one tap k (grid
-// [P/64, 9]).  It keeps the pixels' cotangent rows in shared memory, and
-// for each 32-channel slice of Cin
-//   1. loads the slice of W_k and computes dcols [64 x 32] in f32: WMMA
-//      bf16 tiles on the tensor cores for bfloat16 (ct and W are bf16
-//      exactly, so nothing is rounded), FMA on the CUDA cores for float32;
-//   2. gathers the four corners of every (pixel, channel), forms the sample
-//      and its two derivatives, adds the dx contributions with atomicAdd
-//      into an f32 buffer, keeps per-pixel partial sums of dmask and
-//      doffset in registers, and writes the modulated sample, rounded to
-//      the input type as the forward rounds it, to shared memory;
-//   3. forms the block's dW_k slice partial [32 x Cout] = cols^T . ct (WMMA
-//      or FMA) and adds it into an f32 dW with atomicAdd.
-// doffset and dmask of (pixel, tap) are written once, by the block that
-// owns them; dbias is summed by the tap-0 blocks.
+// Determinism.  No float atomics: every output element is summed by one
+// thread, in an order fixed by the shapes alone, so two runs on the same
+// inputs give the same bits.
 //
-// Atomics make the f32 sums of dx, dW and dbias run in an order that
-// changes from run to run: results agree with a plain version to the
-// rounding of f32 sums, not bit for bit.  The TPU's K5 is deterministic
-// (a y-banded gather of the cotangent); a deterministic dx is later work.
+// Up to four launches, each owning what it writes:
+//
+//   A. dcn_bwd_grads (doffset, dmask, dW; K4's output-owned pass and K3's
+//      gradients but dx), 128 threads: a block owns one tap k, one
+//      64-channel slice of Cin and a fixed chunk of the pixels.  Its W_k
+//      slice stays in shared memory; each 64-pixel tile's cotangent,
+//      offset and mask rows arrive by cp.async during the previous tile,
+//      and dcols [64 x 64] runs on wgmma (m64n64k16, K = Cout).  A warp
+//      then walks 16 pixels, a lane 8 channels of one (16-byte loads, with
+//      no branch: an outside corner reads a valid row and gets weight 0,
+//      as the plain version's clamped index does); one gather serves three
+//      uses: dmask, ddy and ddx summed over the channels (lane sums, then
+//      a fixed butterfly over the pixel's eight lanes), and the column
+//      m . sample, rounded as the forward rounds it, written transposed
+//      into shared memory.  dW_k [64 x Cout] += cols^T . ct then runs on
+//      wgmma (K = pixels) in registers across the chunk.  The number of
+//      chunks depends on the shape only: one wave of two blocks per SM.
+//   B. dcn_bwd_dx (dx; K5's idea), 256 threads: a block owns `tr` input
+//      rows of one image, the full width, and a 32-channel slice.  It
+//      walks the band of source rows that can reach them (y-R-2 .. y+R+1
+//      around the tile, the whole height when unclamped) in 64-pixel
+//      tiles.  Per tile it computes the geometry of all nine taps once and
+//      lists, in pixel order, the corners that land in its rows, by the
+//      group (row mod 4, column parity) of their cell; per pair of taps,
+//      the two warpgroups recompute dcols of one tap each on wgmma
+//      (m64n32k16) instead of storing [P, 9, Cin] in device memory, and
+//      each of the eight warps adds the listed corners of its group into a
+//      shared-memory accumulator, a lane per channel, in list order (four
+//      entries at once where their cells differ).  A source's four corners
+//      fall in four different groups, so no two warps ever write one cell.
+//      `tr` is chosen from the shape for the fewest waves times band
+//      tiles.
+//   C. dcn_bwd_sum_chunks: dW = the chunks' partials summed in chunk order
+//      (none when there is one chunk: pass A then writes dW itself).
+//   D. dcn_bwd_sum_slices: doffset and dmask = the channel slices'
+//      partials summed in slice order (none when Cin <= 64).
+//
+// float32 runs the same passes with the products on the CUDA cores (FMA,
+// in wgmma's fragment layout, so the epilogues are shared): TF32 would not
+// keep float32's accuracy.
 //
 // What bounds it on an H100: the products (dcols and dW) are twice the
-// forward's (4 * P * 9 * Cin * Cout operations), ~28 GFLOP per image at
+// forward's, 4 * P * 9 * Cin * Cout operations, ~28 GFLOP per image at
 // dla_34 512x512, ~29 us at the bf16 tensor-core rate; the bytes (x, ct,
-// offsets in; dx, doffset, dmask out) are ~60 MB per image in bf16,
-// ~18 us.  This kernel is far from that: no pipelining, the corner gather
-// repeated per tap, 4 scalar atomics per (pixel, tap, channel) for dx.
+// offsets, mask, W in; dx, doffset, dmask, dW out) are ~60 MB per image in
+// bf16, ~18 us.  What this design does about the old kernel's costs: no
+// float atomics (~302 M per call for dx and ~75 M for dW at 64->64 @128,
+// batch 8, before); the W_k slice loaded once per block and the corner
+// gather done once for dmask, doffset and dW; wgmma with cp.async-staged
+// operands instead of synchronous 16x16 WMMA; grids sized from the shape.
+// It is slower than the old kernel all the same (PERF.md): the passes are
+// bound by latency, not by the tensor cores or the bytes.  Clock counts
+// inside one block at 64->64 @128, batch 8 put pass B's time in the band
+// walk (geometry and lists of every band tile, ~2.9x the tile's own
+// pixels at tr = 8), its syncs and small per-tap products, and the
+// dependent shared-memory adds of the scatter; and pass A's in the corner
+// gather's global-load round trips.  Tried and measured slower: a
+// lookahead of the next pair's products (its buffers cost rows), all nine
+// taps' products per wait with a lane-per-entry scatter, three pass-A
+// blocks per SM.
 //
-// Layouts follow the JAX op: x NHWC [B,H,W,Cin], offset [P, ld_off] with
-// (dy, dx) of tap k at 2k, 2k+1, mask [P, ld_msk], weight [3,3,Cin,Cout]
+// Layouts follow the JAX op: x NHWC [B,H,W,Cin], offset [P, 18] with
+// (dy, dx) of tap k at 2k, 2k+1, mask [P, 9], weight [3,3,Cin,Cout]
 // (= row-major [9*Cin, Cout]), ct [P, Cout].  x, weight and ct share one
 // type T (float or bf16); offset and mask have type TO (float or bf16).
-// Outputs are f32: dx [P, Cin], dW [9*Cin, Cout] and dbias [Cout] zeroed by
-// the caller (accumulated with atomics), doffset [P, 18] and dmask [P, 9]
-// written in full.
+// Outputs are f32 and written in full: dx [P, Cin], doffset [P, 18], dmask
+// [P, 9], dW [9*Cin, Cout].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <stdint.h>
 
 namespace {
 
-namespace wmma = nvcuda::wmma;
-
-constexpr int kBM = 64;        // pixels per block
-constexpr int kBK = 32;        // input channels per slice
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kRows = kBM * kBK / kThreads;  // (pixel, channel) items a thread
+constexpr int kThreads = 128;  // one warpgroup per block
+constexpr int kTile = 64;      // pixels per tile: the M of every product
+constexpr int kCA = 64;        // channels per pass-A product (its N)
+constexpr int kCB = 32;        // channels per pass-B block (its N)
+constexpr int kVS = 40;        // row stride of pass B's dcols tiles (floats)
+constexpr int kDS = 68;        // row stride of pass A's dcols tile (floats)
+constexpr int kWRing = 4;      // pass B's W slots at most: two pairs of taps
+constexpr int kDxThreads = 256;  // pass B: two warpgroups
+constexpr int kSmemMax = 232448;   // dynamic shared memory a block may use
+constexpr int kSMs = 132;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -97,355 +135,1048 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
 }
+__host__ __device__ constexpr int cdiv(long long v, long long m) {
+  return (int)((v + m - 1) / m);
+}
 
-// Shared-memory layout of one block, in bytes from the dynamic base.  bf16
-// runs WMMA and pads rows to keep its 32-byte fragment alignment; f32 runs
-// FMA and pads rows by one element against bank conflicts.
-struct Layout {
-  int np;      // Cout padded to the WMMA depth (16) for bf16, Cout for f32
-  int ld_ct;   // row stride (elements) of the cotangent tile [kBM][ld_ct]
-  int ld_w;    // row stride of the weight slice [kBK][ld_w]
-  int ld_dc;   // row stride of dcols [kBM][ld_dc] (f32)
-  int ld_cs;   // row stride of the column tile [kBM][ld_cs]
-  int ld_dw;   // row stride of the dW partial [kBK][ld_dw] (f32, bf16 only)
-  int off_ct, off_w, off_dc, off_cs, off_dw, off_idx, off_f, bytes;
+// ---------------------------------------------------------------------------
+// Operand tiles in shared memory: "K-major packed".  A tile of R rows by K
+// (a multiple of 16) is cut into core matrices of 8 rows by 16 bytes, each
+// stored as 128 contiguous bytes; core matrices follow each other along K,
+// then along the rows.  This is wgmma's layout without swizzle (leading
+// byte offset 128: the next core matrix along K; stride byte offset K * 16
+// for bf16: the next 8 rows), and the FMA path reads the same layout.
+// ---------------------------------------------------------------------------
 
-  __host__ __device__ Layout(int cout, bool wmma_path, int elem) {
-    np = wmma_path ? round_up(cout, 16) : cout;
-    ld_ct = wmma_path ? np + 8 : cout + 1;
-    ld_w = ld_ct;
-    ld_dc = kBK + 4;
-    ld_cs = wmma_path ? kBK + 8 : kBK + 1;
-    ld_dw = np + 4;
-    off_ct = 0;
-    off_w = round_up(off_ct + kBM * ld_ct * elem, 128);
-    off_dc = round_up(off_w + kBK * ld_w * elem, 128);
-    off_cs = round_up(off_dc + kBM * ld_dc * 4, 128);
-    off_dw = round_up(off_cs + kBM * ld_cs * elem, 128);
-    off_idx = round_up(off_dw + (wmma_path ? kBK * ld_dw * 4 : 0), 128);
-    off_f = round_up(off_idx + 4 * kBM * 8, 128);
-    bytes = off_f + 4 * kBM * 4;
+template <typename T>
+__host__ __device__ __forceinline__ int pack_off(int r, int k, int kdim) {
+  constexpr int E = 16 / (int)sizeof(T);
+  return ((r >> 3) * (kdim / E) + k / E) * (8 * E) + (r & 7) * E + (k % E);
+}
+
+__device__ __forceinline__ void cp_async16(void* s, const void* g) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(g)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// generic-proxy writes to shared memory (st.shared, cp.async) made visible
+// to wgmma's reads (the async proxy); each thread, before the barrier
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// rows [row0, row0 + rows) of a row-major [*, ld] matrix into a packed tile
+// with K = kp: element (r, k) = src[(row0 + r) * ld + k] where row0 + r <
+// row_end and k < ld, else 0.  16-byte chunks go by cp.async where aligned
+// (the caller commits and waits), the rest by plain loads.
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
+                                          long long row0, int rows,
+                                          long long row_end, int ld, int kp) {
+  constexpr int E = 16 / (int)sizeof(T);
+  const int chunks = kp / E;
+  const T zero = from_f<T>(0.f);
+  for (int e = threadIdx.x; e < rows * chunks; e += blockDim.x) {
+    const int r = e / chunks, k = (e % chunks) * E;
+    T* d = dst + pack_off<T>(r, k, kp);
+    const long long row = row0 + r;
+    const T* g = src + row * ld + k;
+    if (row < row_end && k + E <= ld &&
+        (reinterpret_cast<uintptr_t>(g) & 15) == 0) {
+      cp_async16(d, g);
+    } else {
+#pragma unroll
+      for (int i = 0; i < E; ++i)
+        d[i] = (row < row_end && k + i < ld) ? g[i] : zero;
+    }
+  }
+}
+
+// v[0..7] = p[0..7] as float, p aligned to 16 bytes (no branch)
+__device__ __forceinline__ void load8_aligned(const __nv_bfloat16* p,
+                                              float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void load8_aligned(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// ---------------------------------------------------------------------------
+// The 64 x N product of one warpgroup, D += A . B^T with A [64 x kp] and B
+// [N x kp] packed tiles.  D lives in registers in wgmma's accumulator
+// layout: d[v] of thread t (t counted within its warpgroup) holds row
+// 16 (t / 32) + (t % 32) / 4 + 8 ((v / 2) % 2), column 8 (v / 4) + 2 (t % 4)
+// + v % 2.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int frag_row(int v) {
+  return ((threadIdx.x & 127) >> 5) * 16 + ((threadIdx.x & 31) >> 2) +
+         8 * ((v >> 1) & 1);
+}
+__device__ __forceinline__ int frag_col(int v) {
+  return 8 * (v >> 2) + 2 * (threadIdx.x & 3) + (v & 1);
+}
+
+template <int M>
+__device__ __forceinline__ void fence_operands(float (&d)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  uint64_t d = (uint64_t)((a >> 4) & 0x3FFF);
+  d |= (uint64_t)((128 >> 4) & 0x3FFF) << 16;           // leading: along K
+  d |= (uint64_t)(((uint32_t)sbo >> 4) & 0x3FFF) << 32;  // stride: 8 rows
+  return d;  // base offset 0, layout type 0 (no swizzle)
+}
+
+#define CP_R8(i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+__device__ __forceinline__ void wgmma_tile(float (&d)[32], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : CP_R8(0), CP_R8(8), CP_R8(16), CP_R8(24)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tile(float (&d)[16], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : CP_R8(0), CP_R8(8)
+      : "l"(da), "l"(db), "r"(1));
+}
+// four k16 steps (K = 64) in one asm statement, so that ptxas issues them
+// back to back instead of waiting after each
+__device__ __forceinline__ void wgmma_k64(float (&d)[32], uint64_t a0,
+                                          uint64_t a1, uint64_t a2,
+                                          uint64_t a3, uint64_t b0,
+                                          uint64_t b1, uint64_t b2,
+                                          uint64_t b3) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %40, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %36, p, 1, 1, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %33, %37, p, 1, 1, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %34, %38, p, 1, 1, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %35, %39, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : CP_R8(0), CP_R8(8), CP_R8(16), CP_R8(24)
+      : "l"(a0), "l"(a1), "l"(a2), "l"(a3), "l"(b0), "l"(b1), "l"(b2),
+        "l"(b3), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_k64(float (&d)[16], uint64_t a0,
+                                          uint64_t a1, uint64_t a2,
+                                          uint64_t a3, uint64_t b0,
+                                          uint64_t b1, uint64_t b2,
+                                          uint64_t b3) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %24, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, %16, %20, p, 1, 1, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, %17, %21, p, 1, 1, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, %18, %22, p, 1, 1, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, %19, %23, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : CP_R8(0), CP_R8(8)
+      : "l"(a0), "l"(a1), "l"(a2), "l"(a3), "l"(b0), "l"(b1), "l"(b2),
+        "l"(b3), "r"(1));
+}
+
+#undef CP_R8
+
+// bf16: issue the product on the tensor cores (asynchronous; mma_wait
+// ends it)
+template <int M>
+__device__ __forceinline__ void mma_issue(float (&d)[M],
+                                          const __nv_bfloat16* A,
+                                          const __nv_bfloat16* B, int kp) {
+  const int sbo = kp * 16;
+  fence_operands(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  int kk = 0;
+  for (; kk + 64 <= kp; kk += 64) {
+    const uint64_t a = smem_desc(A + kk * 8, sbo);
+    const uint64_t b = smem_desc(B + kk * 8, sbo);
+    // the next k16 step starts 256 bytes on: 16 in the address field
+    wgmma_k64(d, a, a + 16, a + 32, a + 48, b, b + 16, b + 32, b + 48);
+  }
+  for (; kk < kp; kk += 16)
+    wgmma_tile(d, smem_desc(A + kk * 8, sbo), smem_desc(B + kk * 8, sbo));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// float32: the same product on the CUDA cores, in the same layout, done on
+// return
+template <int M>
+__device__ __forceinline__ void mma_issue(float (&d)[M], const float* A,
+                                          const float* B, int kp) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  for (int k = 0; k < kp; ++k) {
+    const float a0 = A[pack_off<float>(r0, k, kp)];
+    const float a1 = A[pack_off<float>(r0 + 8, k, kp)];
+#pragma unroll
+    for (int j = 0; j < M / 4; ++j) {
+      const float b0 = B[pack_off<float>(8 * j + cq, k, kp)];
+      const float b1 = B[pack_off<float>(8 * j + cq + 1, k, kp)];
+      d[4 * j] = fmaf(a0, b0, d[4 * j]);
+      d[4 * j + 1] = fmaf(a0, b1, d[4 * j + 1]);
+      d[4 * j + 2] = fmaf(a1, b0, d[4 * j + 2]);
+      d[4 * j + 3] = fmaf(a1, b1, d[4 * j + 3]);
+    }
+  }
+}
+
+// wait until at most N products of this warpgroup are in flight
+template <typename T, int N, int M>
+__device__ __forceinline__ void mma_wait(float (&d)[M]) {
+  if constexpr (sizeof(T) == 2)
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+  fence_operands(d);
+}
+
+// ---------------------------------------------------------------------------
+// Geometry of one (pixel, tap), as the forward's tap_corners: the clamped
+// sample point, its four corners (index of the corner's x row, -1 outside
+// the image), bilinear weights, mask, and the clamp's gradient factor.
+// ---------------------------------------------------------------------------
+
+struct TapGeo {
+  long long idx[4];
+  float wq[4];
+  float wy1, wx1, mk, pass;
+  int y0, x0;
+};
+
+// pixel (b, py, px) of a [B, H, W] grid at tap k, with its raw offset
+// (dy, dxo) and mask mk
+__device__ __forceinline__ TapGeo tap_geo(int b, int py, int px, int k,
+                                          float dy, float dxo, float mk,
+                                          int H, int W, int Cin, float max_dy,
+                                          float edge) {
+  TapGeo g;
+  g.pass = 1.f;
+  if (max_dy >= 0.f) {
+    const float a = fabsf(dy);
+    g.pass = a > max_dy ? 0.f : (a == max_dy ? edge : 1.f);
+    dy = fminf(fmaxf(dy, -max_dy), max_dy);
+  }
+  g.mk = mk;
+  const float sy = (float)(py + k / 3 - 1) + dy;
+  const float sx = (float)(px + k % 3 - 1) + dxo;
+  const float y0 = floorf(sy), x0 = floorf(sx);
+  g.wy1 = sy - y0;
+  g.wx1 = sx - x0;
+  // clamped before the int conversion; a clamped corner is outside anyway
+  g.y0 = (int)fminf(fmaxf(y0, -4.f), (float)H + 4.f);
+  g.x0 = (int)fminf(fmaxf(x0, -4.f), (float)W + 4.f);
+  const float wy0 = 1.f - g.wy1, wx0 = 1.f - g.wx1;
+  g.wq[0] = wy0 * wx0;
+  g.wq[1] = wy0 * g.wx1;
+  g.wq[2] = g.wy1 * wx0;
+  g.wq[3] = g.wy1 * g.wx1;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int yc = g.y0 + q / 2, xc = g.x0 + q % 2;
+    g.idx[q] = (yc >= 0 && yc < H && xc >= 0 && xc < W)
+                   ? (((long long)b * H + yc) * W + xc) * Cin
+                   : -1;
+  }
+  return g;
+}
+
+// pixel m (< 2^31) of a [B, H, W] grid
+__device__ __forceinline__ TapGeo tap_geo(int m, int k, float dy, float dxo,
+                                          float mk, int H, int W, int Cin,
+                                          float max_dy, float edge) {
+  const int t = m / W;
+  return tap_geo(t / H, t % H, m - t * W, k, dy, dxo, mk, H, W, Cin, max_dy,
+                 edge);
+}
+
+// n contiguous elements from global to shared memory: 16-byte chunks by
+// cp.async where aligned (the caller commits and waits), the rest plainly
+template <typename TO>
+__device__ __forceinline__ void copy_rows(TO* dst, const TO* __restrict__ src,
+                                          int n) {
+  constexpr int E = 16 / (int)sizeof(TO);
+  const bool vec = ((reinterpret_cast<uintptr_t>(src) |
+                     reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
+  const int nv = vec ? n / E : 0;
+  for (int e = threadIdx.x; e < nv; e += blockDim.x)
+    cp_async16(dst + e * E, src + e * E);
+  for (int e = nv * E + threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
+}
+
+// ---------------------------------------------------------------------------
+// Shared-memory layouts, in bytes from the dynamic base (host and device).
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int align128(int v) { return round_up(v, 128); }
+
+struct LayoutA {  // W_k slice, inputs (one or two sets: ct tile, offset
+                  // and mask rows), cols^T, ct^T, dcols, geometry
+  int ct[2], offs[2], msks[2], at, bt, dc, geo, bytes;
+  __host__ __device__ LayoutA(int kp, int elem, int oelem, bool two) {
+    const int in = align128(kTile * kp * elem) +
+                   align128(kTile * 18 * oelem) + align128(kTile * 9 * oelem);
+    int o = align128(kCA * kp * elem);
+    for (int i = 0; i < 2; ++i) {
+      ct[i] = o;
+      offs[i] = ct[i] + align128(kTile * kp * elem);
+      msks[i] = offs[i] + align128(kTile * 18 * oelem);
+      if (two) o += in;
+    }
+    o += in;
+    at = o;
+    bt = at + align128(kCA * kTile * elem);
+    dc = bt + align128(64 * kTile * elem);
+    geo = dc + align128(kTile * kDS * 4);
+    bytes = geo + 4 * kTile * 8 + 18 * kTile * 4;
   }
 };
 
-template <typename T>
-__host__ __device__ constexpr bool uses_wmma() { return sizeof(T) == 2; }
-
-// dcols [kBM x kBK] = ct [kBM x Cout] . W_slice^T, f32 into dc.
-__device__ __forceinline__ void dcols_tile(const float* ct, const float* ws,
-                                           float* dc, const Layout& L,
-                                           int cout) {
-  const int tid = threadIdx.x;
-  const int cc = tid % kBK, g = tid / kBK;  // 8 groups of pixels
-  float acc[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
-  for (int n = 0; n < cout; ++n) {
-    const float wv = ws[cc * L.ld_w + n];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      acc[i] = fmaf(ct[(g + 8 * i) * L.ld_ct + n], wv, acc[i]);
+struct LayoutB {  // ct tile, rows, W slots, dcols, hit lists, accumulator
+  int offs, msks, w[kWRing], v[2], lst, lw, cnt, acc, bytes;
+  // wslots: 4 (the next pair of W slices loads during this pair) or 2
+  __host__ __device__ LayoutB(int kp, int elem, int oelem, int wslots,
+                              int cells) {
+    offs = align128(kTile * kp * elem);
+    msks = offs + align128(kTile * 18 * oelem);
+    w[0] = msks + align128(kTile * 9 * oelem);
+    for (int i = 1; i < kWRing; ++i)
+      w[i] = w[i - 1] + (i < wslots ? align128(kCB * kp * elem) : 0);
+    v[0] = w[wslots - 1] + align128(kCB * kp * elem);  // dcols of a pair
+    v[1] = v[0] + align128(kTile * kVS * 4);
+    lst = v[1] + align128(kTile * kVS * 4);
+    lw = lst + 9 * 8 * kTile * 4;
+    cnt = lw + 9 * 8 * kTile * 4;
+    acc = align128(cnt + 9 * 16 * 4);
+    bytes = acc + cells * kCB * 4;
   }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) dc[(g + 8 * i) * L.ld_dc + cc] = acc[i];
-}
+};
 
-__device__ __forceinline__ void dcols_tile(const __nv_bfloat16* ct,
-                                           const __nv_bfloat16* ws, float* dc,
-                                           const Layout& L, int) {
-  // 8 warps, one 16x16 output tile each: rows 16*(w%4), columns 16*(w/4).
-  const int warp = threadIdx.x / 32;
-  const int wm = warp % 4, wn = warp / 4;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.f);
-  for (int kk = 0; kk < L.np; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major> a;
-    // B[n][c] = W_slice[c][n]: the slice read column-major
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                   wmma::col_major> b;
-    wmma::load_matrix_sync(a, ct + wm * 16 * L.ld_ct + kk, L.ld_ct);
-    wmma::load_matrix_sync(b, ws + wn * 16 * L.ld_w + kk, L.ld_w);
-    wmma::mma_sync(acc, a, b, acc);
-  }
-  wmma::store_matrix_sync(dc + wm * 16 * L.ld_dc + wn * 16, acc, L.ld_dc,
-                          wmma::mem_row_major);
-}
+// ---------------------------------------------------------------------------
+// Pass A: doffset, dmask and dW.  Grid [pixel chunks, taps, 64-channel
+// slices]; chunk ch holds pixel tiles [ch * tiles / n, (ch + 1) * tiles / n).
+// NT: 64-wide column tiles of dW the block holds (Cout <= 64 NT).
+// ---------------------------------------------------------------------------
 
-// dW[k, c0 + c, n] += sum_p cols[p][c] * ct[p][n]  (f32 FMA; thread owns
-// channel tid / 8 and outputs n = tid % 8 + 8 j of each 64-wide chunk).
-__device__ __forceinline__ void dw_tile(const float* ct, const float* cs,
-                                        float*, float* __restrict__ dw,
-                                        const Layout& L, long long row0,
-                                        int cin_left, int cout) {
-  const int tid = threadIdx.x;
-  const int cc = tid / 8, j0 = tid % 8;
-  if (cc >= cin_left) return;
-  for (int n0 = 0; n0 < cout; n0 += 64) {
-    float acc[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-    for (int mm = 0; mm < kBM; ++mm) {
-      const float cv = cs[mm * L.ld_cs + cc];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + j0 + 8 * j;
-        if (n < cout) acc[j] = fmaf(cv, ct[mm * L.ld_ct + n], acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + j0 + 8 * j;
-      if (n < cout) atomicAdd(&dw[(row0 + cc) * cout + n], acc[j]);
-    }
-  }
-}
-
-// The same on the tensor cores: [kBK x np] = cols^T [kBK x kBM] . ct.
-__device__ __forceinline__ void dw_tile(const __nv_bfloat16* ct,
-                                        const __nv_bfloat16* cs, float* dwp,
-                                        float* __restrict__ dw,
-                                        const Layout& L, long long row0,
-                                        int cin_left, int cout) {
-  const int warp = threadIdx.x / 32;
-  const int ntiles = 2 * (L.np / 16);
-  for (int t = warp; t < ntiles; t += kThreads / 32) {
-    const int ti = t % 2, tn = t / 2;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kBM; kk += 16) {
-      // A[c][p] = cols[p][c]: the column tile read column-major
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b;
-      wmma::load_matrix_sync(a, cs + kk * L.ld_cs + ti * 16, L.ld_cs);
-      wmma::load_matrix_sync(b, ct + kk * L.ld_ct + tn * 16, L.ld_ct);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(dwp + ti * 16 * L.ld_dw + tn * 16, acc, L.ld_dw,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < kBK * cout; e += kThreads) {
-    const int cc = e / cout, n = e % cout;
-    if (cc < cin_left)
-      atomicAdd(&dw[(row0 + cc) * cout + n], dwp[cc * L.ld_dw + n]);
-  }
-}
-
-template <typename T, typename TO>
+template <typename T, typename TO, int NT>
 __global__ void __launch_bounds__(kThreads)
-dcn_bwd_kernel(const T* __restrict__ x, const TO* __restrict__ off,
-               int ld_off, const TO* __restrict__ msk, int ld_msk,
-               const T* __restrict__ wt, const T* __restrict__ ct,
-               float* __restrict__ dx, float* __restrict__ doff,
-               float* __restrict__ dmask, float* __restrict__ dw,
-               float* __restrict__ dbias, int B, int H, int W, int Cin,
-               int Cout, float max_dy) {
+dcn_bwd_grads(const T* __restrict__ x, const TO* __restrict__ off,
+             const TO* __restrict__ msk, const T* __restrict__ wt,
+             const T* __restrict__ ct, float* __restrict__ doff,
+             float* __restrict__ dmask, float* __restrict__ ompart,
+             float* __restrict__ dwout, int B, int H, int W, int Cin,
+             int Cout, float max_dy, float edge, int nchunks, int two) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(Cout, uses_wmma<T>(), (int)sizeof(T));
-  T* cts = reinterpret_cast<T*>(smem + L.off_ct);
-  T* ws = reinterpret_cast<T*>(smem + L.off_w);
-  float* dc = reinterpret_cast<float*>(smem + L.off_dc);
-  T* cs = reinterpret_cast<T*>(smem + L.off_cs);
-  float* dwp = reinterpret_cast<float*>(smem + L.off_dw);
-  long long* cidx = reinterpret_cast<long long*>(smem + L.off_idx);  // [4][kBM]
-  float* cf = reinterpret_cast<float*>(smem + L.off_f);  // wy, wx, mk, pass
+  const int kp = round_up(Cout, 16);
+  const LayoutA L(kp, (int)sizeof(T), (int)sizeof(TO), two != 0);
+  T* wsl = reinterpret_cast<T*>(smem);              // W_k slice [64 x kp]
+  T* at = reinterpret_cast<T*>(smem + L.at);        // cols^T [64 c x 64 p]
+  T* bt = reinterpret_cast<T*>(smem + L.bt);        // ct^T [64 n x 64 p]
+  float* dc = reinterpret_cast<float*>(smem + L.dc);  // dcols [64][kDS]
+  // per pixel: the corners' x rows (a valid row where the corner is
+  // outside: its weights are 0 there, as the plain version's clamped
+  // index); per corner the weights of the sample, of the column (the
+  // sample's times the mask) and of the sample's y and x derivatives; the
+  // mask; the clamp's gradient factor
+  long long* gidx = reinterpret_cast<long long*>(smem + L.geo);  // [4][64]
+  float* gw = reinterpret_cast<float*>(smem + L.geo + 4 * kTile * 8);
+  float* s_mk = gw + 16 * kTile;
+  float* s_pass = gw + 17 * kTile;
 
-  const int tid = threadIdx.x;
-  const int k = blockIdx.y;
-  const long long npix = (long long)B * H * W;
-  const long long m0 = (long long)blockIdx.x * kBM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k = blockIdx.y, slice = blockIdx.z, c0 = slice * kCA;
+  const int ch = blockIdx.x;
+  const bool one_slice = gridDim.z == 1;
+  const int npix = B * H * W;
+  const int tiles = cdiv(npix, kTile);
+  const int j0 = (int)((long long)ch * tiles / nchunks);
+  const int j1 = (int)((long long)(ch + 1) * tiles / nchunks);
   const T zero = from_f<T>(0.f);
 
-  // the block's cotangent rows, zero past the last pixel and the padding
-  for (int e = tid; e < kBM * L.np; e += kThreads) {
-    const int mm = e / L.np, n = e % L.np;
-    const long long m = m0 + mm;
-    cts[mm * L.ld_ct + n] = (m < npix && n < Cout) ? ct[m * Cout + n] : zero;
-  }
-  // the tap's four corners per pixel (as the forward's tap_corners), the
-  // fractional weights, the mask and whether the clamp passes the gradient
-  if (tid < kBM) {
-    const long long m = m0 + tid;
-    long long idx[4] = {-1, -1, -1, -1};
-    float wy1 = 0.f, wx1 = 0.f, mk = 0.f, pass = 0.f;
-    if (m < npix) {
-      const int px = (int)(m % W);
-      const long long t = m / W;
-      const int py = (int)(t % H);
-      const long long b = t / H;
-      float dy = to_f(off[m * ld_off + 2 * k]);
-      const float dxo = to_f(off[m * ld_off + 2 * k + 1]);
-      pass = 1.f;
-      if (max_dy >= 0.f) {
-        pass = (dy >= -max_dy && dy <= max_dy) ? 1.f : 0.f;
-        dy = fminf(fmaxf(dy, -max_dy), max_dy);
-      }
-      mk = to_f(msk[m * ld_msk + k]);
-      const float sy = (float)(py + k / 3 - 1) + dy;
-      const float sx = (float)(px + k % 3 - 1) + dxo;
-      const float y0 = floorf(sy), x0 = floorf(sx);
-      wy1 = sy - y0;
-      wx1 = sx - x0;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float yc = y0 + (float)(q / 2), xc = x0 + (float)(q % 2);
-        if (yc >= 0.f && yc <= (float)(H - 1) && xc >= 0.f &&
-            xc <= (float)(W - 1))
-          idx[q] = ((b * H + (long long)yc) * W + (long long)xc) * Cin;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) cidx[q * kBM + tid] = idx[q];
-    cf[tid] = wy1;
-    cf[kBM + tid] = wx1;
-    cf[2 * kBM + tid] = mk;
-    cf[3 * kBM + tid] = pass;
-  }
-  __syncthreads();
+  // cotangent, offset and mask rows of a tile into input set `buf`
+  auto load_inputs = [&](int m0, int buf) {
+    const int rows = min(kTile, npix - m0);
+    load_tile(reinterpret_cast<T*>(smem + L.ct[buf]), ct, m0, kTile, npix,
+              Cout, kp);
+    copy_rows(reinterpret_cast<TO*>(smem + L.offs[buf]),
+              off + (long long)m0 * 18, rows * 18);
+    copy_rows(reinterpret_cast<TO*>(smem + L.msks[buf]),
+              msk + (long long)m0 * 9, rows * 9);
+  };
 
-  if (k == 0) {  // dbias: the tap-0 blocks sum their cotangent rows
-    for (int n = tid; n < Cout; n += kThreads) {
-      float s = 0.f;
-      for (int mm = 0; mm < kBM; ++mm) s += to_f(cts[mm * L.ld_ct + n]);
-      atomicAdd(&dbias[n], s);
-    }
-  }
+  load_tile(wsl, wt + k * (long long)Cin * Cout, c0, kCA, Cin, Cout, kp);
+  if (j0 < j1) load_inputs(j0 * kTile, 0);
+  cp_async_commit();
 
-  // item r of this thread: pixel warp + 8 r, channel lane of the slice
-  const int lane = tid % 32, warp = tid / 32;
-  float p_mask[kRows], p_dy[kRows], p_dx[kRows];
+  float dw[NT][32];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) p_mask[r] = p_dy[r] = p_dx[r] = 0.f;
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int v = 0; v < 32; ++v) dw[t][v] = 0.f;
 
-  for (int c0 = 0; c0 < Cin; c0 += kBK) {
-    const int cin_left = min(kBK, Cin - c0);
-    for (int e = tid; e < kBK * L.np; e += kThreads) {
-      const int cc = e / L.np, n = e % L.np;
-      ws[cc * L.ld_w + n] = (cc < cin_left && n < Cout)
-          ? wt[((long long)k * Cin + c0 + cc) * Cout + n] : zero;
-    }
+  for (int j = j0; j < j1; ++j) {
+    const int m0 = j * kTile;
+    const int buf = two ? (j - j0) & 1 : 0;
+    T* cts = reinterpret_cast<T*>(smem + L.ct[buf]);      // ct tile
+    const TO* offs = reinterpret_cast<TO*>(smem + L.offs[buf]);
+    const TO* msks = reinterpret_cast<TO*>(smem + L.msks[buf]);
+    cp_async_wait_all();
+    fence_async_smem();
     __syncthreads();
-    dcols_tile(cts, ws, dc, L, Cout);
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int mm = warp + 8 * r, cc = lane, c = c0 + cc;
-      float col = 0.f;
-      if (m0 + mm < npix && cc < cin_left) {
-        float v[4];
+    if (two && j + 1 < j1) {  // the next tile's inputs load during this one
+      load_inputs(m0 + kTile, buf ^ 1);
+      cp_async_commit();
+    }
+    if (tid < kTile) {  // the tile's geometry at tap k
+      const int m = m0 + tid;
+      if (m < npix) {
+        const TapGeo g = tap_geo(m, k, to_f(offs[tid * 18 + 2 * k]),
+                                 to_f(offs[tid * 18 + 2 * k + 1]),
+                                 to_f(msks[tid * 9 + k]), H, W, Cin, max_dy,
+                                 edge);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const long long i = cidx[q * kBM + mm];
-          v[q] = i >= 0 ? to_f(x[i + c]) : 0.f;
+          const float e = g.idx[q] >= 0 ? 1.f : 0.f;
+          const float wy = q < 2 ? -1.f : 1.f, wx = q % 2 ? 1.f : -1.f;
+          gidx[q * kTile + tid] = g.idx[q] >= 0 ? g.idx[q] : 0;
+          gw[q * kTile + tid] = g.wq[q] * e;
+          gw[(4 + q) * kTile + tid] = g.wq[q] * e * g.mk;
+          gw[(8 + q) * kTile + tid] =
+              wy * (q % 2 ? g.wx1 : 1.f - g.wx1) * e;
+          gw[(12 + q) * kTile + tid] =
+              wx * (q < 2 ? 1.f - g.wy1 : g.wy1) * e;
         }
-        const float wy1 = cf[mm], wx1 = cf[kBM + mm], mk = cf[2 * kBM + mm];
-        const float wy0 = 1.f - wy1, wx0 = 1.f - wx1;
-        const float s = wy0 * (wx0 * v[0] + wx1 * v[1]) +
-                        wy1 * (wx0 * v[2] + wx1 * v[3]);
-        const float gy = wx0 * (v[2] - v[0]) + wx1 * (v[3] - v[1]);
-        const float gx = wy0 * (v[1] - v[0]) + wy1 * (v[3] - v[2]);
-        const float d = dc[mm * L.ld_dc + cc];
-        p_mask[r] = fmaf(d, s, p_mask[r]);
-        p_dy[r] = fmaf(d, gy, p_dy[r]);
-        p_dx[r] = fmaf(d, gx, p_dx[r]);
-        const float dm = d * mk;
-        const float wq[4] = {wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1};
+        s_mk[tid] = g.mk;
+        s_pass[tid] = g.pass;
+      } else {  // past the last pixel: nothing sampled
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const long long i = cidx[q * kBM + mm];
-          if (i >= 0) atomicAdd(&dx[i + c], dm * wq[q]);
+          gidx[q * kTile + tid] = 0;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) gw[(4 * r + q) * kTile + tid] = 0.f;
         }
-        col = mk * s;
+        s_mk[tid] = s_pass[tid] = 0.f;
       }
-      cs[mm * L.ld_cs + cc] = from_f<T>(col);
     }
+    // dcols [64 pixels x 64 channels] of tap k
+    float d[32];
+#pragma unroll
+    for (int v = 0; v < 32; ++v) d[v] = 0.f;
+    mma_issue(d, cts, wsl, kp);
+    mma_wait<T, 0>(d);  // also retires the previous tile's dW products
+#pragma unroll
+    for (int t = 0; t < NT; ++t) fence_operands(dw[t]);
+#pragma unroll
+    for (int v = 0; v < 32; ++v) dc[frag_row(v) * kDS + frag_col(v)] = d[v];
     __syncthreads();
-    dw_tile(cts, cs, dwp, dw, L, (long long)k * Cin + c0, cin_left, Cout);
-    __syncthreads();
-  }
 
-  // reduce the per-lane partials over the slice's channels; lane 0 writes
+    // a warp walks 16 pixels, four at a time; a lane owns 8 channels of one
+    // of them (16-byte loads; eight lanes cover the 64-channel slice):
+    // corners, sample, its derivatives; dmask, ddy, ddx summed over the
+    // channels (the lane's eight, then the eight lanes' by a fixed
+    // butterfly), and the column m . sample into cols^T
+    const int cg = (lane & 7) * 8, ps = lane >> 3, c = c0 + cg;
+    const bool vec = (Cin & 7) == 0;  // 16-byte aligned, whole groups
+    for (int h = 0; h < 2; ++h) {  // two pixels of the lane at a time
+      float va[2][4][8];  // [pixel][corner][channel]
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    float a = p_mask[r], b = p_dy[r], c = p_dx[r];
+      for (int i = 0; i < 2; ++i) {
+        const int p = warp * 16 + 4 * (2 * h + i) + ps;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      a += __shfl_xor_sync(0xffffffffu, a, o);
-      b += __shfl_xor_sync(0xffffffffu, b, o);
-      c += __shfl_xor_sync(0xffffffffu, c, o);
+        for (int q = 0; q < 4; ++q) {
+          // every load from a valid address: the weights mask the rest
+          // (channels past Cin read channel 0; their dcols are 0)
+          const long long idx = gidx[q * kTile + p];
+          if (vec) {
+            load8_aligned(x + idx + (c < Cin ? c : 0), va[i][q]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              va[i][q][j] = c + j < Cin ? to_f(x[idx + c + j]) : 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int p = warp * 16 + 4 * (2 * h + i) + ps, m = m0 + p;
+        float w[4][4];  // [sample, column, d/dy, d/dx][corner]
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) w[r][q] = gw[(4 * r + q) * kTile + p];
+        const float mk = s_mk[p];
+        float pa = 0.f, pb = 0.f, pc = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float sv = 0.f, col = 0.f, gy = 0.f, gx = 0.f;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float v = va[i][q][j];
+            sv = fmaf(w[0][q], v, sv);
+            col = fmaf(w[1][q], v, col);
+            gy = fmaf(w[2][q], v, gy);
+            gx = fmaf(w[3][q], v, gx);
+          }
+          const float dd = dc[p * kDS + cg + j];
+          pa = fmaf(dd, sv, pa);
+          pb = fmaf(dd, gy, pb);
+          pc = fmaf(dd, gx, pc);
+          at[pack_off<T>(cg + j, p, kTile)] = from_f<T>(col);
+        }
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) {
+          pa += __shfl_xor_sync(0xffffffffu, pa, o);
+          pb += __shfl_xor_sync(0xffffffffu, pb, o);
+          pc += __shfl_xor_sync(0xffffffffu, pc, o);
+        }
+        if ((lane & 7) == 0 && m < npix) {
+          const float ddy = pb * mk * s_pass[p], ddx = pc * mk;
+          if (one_slice) {
+            dmask[(long long)m * 9 + k] = pa;
+            doff[(long long)m * 18 + 2 * k] = ddy;
+            doff[(long long)m * 18 + 2 * k + 1] = ddx;
+          } else {
+            float* o3 = ompart + (((long long)slice * npix + m) * 9 + k) * 3;
+            o3[0] = pa;
+            o3[1] = ddy;
+            o3[2] = ddx;
+          }
+        }
+      }
     }
-    const int mm = warp + 8 * r;
-    const long long m = m0 + mm;
-    if (lane == 0 && m < npix) {
-      const float mk = cf[2 * kBM + mm], pass = cf[3 * kBM + mm];
-      dmask[m * 9 + k] = a;
-      doff[m * 18 + 2 * k] = b * mk * pass;
-      doff[m * 18 + 2 * k + 1] = c * mk;
+    // dW_k[c, n] += cols^T . ct on the tensor cores, one 64-wide column
+    // tile of ct^T (built from the cotangent tile, zero past Cout) at a
+    // time; the last one runs on into the next tile
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      if (t > 0) {
+        mma_wait<T, 0>(dw[t - 1]);
+        __syncthreads();
+      }
+      // item: one output n, 16 bytes of consecutive pixels
+      constexpr int E = 16 / (int)sizeof(T);
+      for (int e = tid; e < 64 * (kTile / E); e += kThreads) {
+        const int nl = e / (kTile / E), p0 = (e % (kTile / E)) * E;
+        const int n = t * 64 + nl;
+        union {
+          uint4 u;
+          T h[E];
+        } pk;
+#pragma unroll
+        for (int i = 0; i < E; ++i)
+          pk.h[i] = n < kp ? cts[pack_off<T>(p0 + i, n, kp)] : zero;
+        *reinterpret_cast<uint4*>(bt + pack_off<T>(nl, p0, kTile)) = pk.u;
+      }
+      fence_async_smem();
+      __syncthreads();
+      mma_issue(dw[t], at, bt, kTile);
+    }
+    if (!two && j + 1 < j1) {
+      load_inputs(m0 + kTile, 0);
+      cp_async_commit();
+    }
+  }
+  if constexpr (sizeof(T) == 2)
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    fence_operands(dw[t]);
+#pragma unroll
+    for (int v = 0; v < 32; ++v) {
+      const int cc = c0 + frag_row(v), n = t * 64 + frag_col(v);
+      if (cc < Cin && n < Cout)
+        dwout[(((long long)ch * 9 + k) * Cin + cc) * Cout + n] = dw[t][v];
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// Pass B: dx.  Grid [row tiles of tr rows, images, 32-channel slices];
+// kDxThreads threads: two warpgroups compute the dcols of two taps at once,
+// and each of the eight warps owns the destination cells of one group
+// (row mod 4, column parity).
+// ---------------------------------------------------------------------------
+
 template <typename T, typename TO>
-int launch_backward(const void* x, const void* off, int ld_off,
-                    const void* msk, int ld_msk, const void* w,
-                    const void* ct, float* dx, float* doff, float* dmask,
-                    float* dw, float* dbias, int B, int H, int W, int Cin,
-                    int Cout, float max_dy, cudaStream_t stream) {
-  const Layout L(Cout, uses_wmma<T>(), (int)sizeof(T));
-  auto kernel = dcn_bwd_kernel<T, TO>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
-  if (err != cudaSuccess) return (int)err;
+__global__ void __launch_bounds__(kDxThreads)
+dcn_bwd_dx(const TO* __restrict__ off, const TO* __restrict__ msk,
+          const T* __restrict__ wt, const T* __restrict__ ct,
+          float* __restrict__ dx, int B, int H, int W, int Cin, int Cout,
+          float max_dy, int tr, int wslots) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int kp = round_up(Cout, 16);
+  const LayoutB L(kp, (int)sizeof(T), (int)sizeof(TO), wslots, tr * W);
+  const bool ahead = wslots == kWRing;  // W of the next pair during this
+  T* cts = reinterpret_cast<T*>(smem);
+  TO* offs = reinterpret_cast<TO*>(smem + L.offs);  // the tile's offsets
+  TO* msks = reinterpret_cast<TO*>(smem + L.msks);  // and mask rows
+  float* acc = reinterpret_cast<float*>(smem + L.acc);    // [cells][32]
+  // hits of a source tile per (tap, cell group, half of the tile): entries
+  // p | cell << 6 in pixel order, their weights, their counts
+  int* lst = reinterpret_cast<int*>(smem + L.lst);    // [9][8][2][32]
+  float* lw = reinterpret_cast<float*>(smem + L.lw);  // [9][8][2][32]
+  int* cnt = reinterpret_cast<int*>(smem + L.cnt);    // [9][8][2]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = tid >> 7;  // warpgroup: the tap of a pair it multiplies
+  const int t0 = blockIdx.x * tr, t1 = min(H, t0 + tr) - 1;
+  const int b = blockIdx.y, c0 = blockIdx.z * kCB;
+  int lo = 0, hi = H - 1;
+  if (max_dy >= 0.f) {  // rows whose samples can reach rows t0..t1
+    const int rc = (int)ceilf(max_dy);
+    lo = max(0, t0 - rc - 2);
+    hi = min(H - 1, t1 + rc + 1);
+  }
+  const int pb = (b * H + lo) * W, pe = (b * H + hi + 1) * W;
+  const int ntiles = cdiv(pe - pb, kTile);
+  const int ncell = (t1 - t0 + 1) * W;
+  const long long wtap = (long long)Cin * Cout;
+
+  auto load_inputs = [&](int m0) {  // cotangent, offset and mask rows
+    const int rows = min(kTile, pe - m0);
+    load_tile(cts, ct, m0, kTile, pe, Cout, kp);
+    copy_rows(offs, off + (long long)m0 * 18, rows * 18);
+    copy_rows(msks, msk + (long long)m0 * 9, rows * 9);
+  };
+  // the W slices of a pair of taps (k, k + 1 where k < 8): pair q of the
+  // block's sequence into slots 2 (q % 2) and 2 (q % 2) + 1 (four slots)
+  // or 0 and 1 (two)
+  auto wslot = [&](int q, int i) { return L.w[(ahead ? 2 * (q & 1) : 0) + i]; };
+  auto load_pair = [&](int q) {
+    const int k = 2 * (q % 5);
+    for (int i = 0; i < 2 && k + i < 9; ++i)
+      load_tile(reinterpret_cast<T*>(smem + wslot(q, i)),
+                wt + (k + i) * wtap, c0, kCB, Cin, Cout, kp);
+  };
+  for (int e = tid; e < ncell * kCB; e += kDxThreads) acc[e] = 0.f;
+  load_inputs(pb);
+  load_pair(0);
+  cp_async_commit();
+
+  const int grp = warp, c = lane;  // scatter: the warp's cells, the lane's
+                                   // channel
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait_all();
+    __syncthreads();  // the tile's rows are here
+    // geometry of the tile's 64 pixels at all nine taps: item i = 64 k + p,
+    // one warp per half tile of one tap; each corner in the tile is listed
+    // under its cell's group
+    for (int i0 = warp * 32; i0 < 9 * kTile; i0 += kDxThreads) {
+      const int i = i0 + lane, k = i / kTile, p = i % kTile, h = p >> 5;
+      const int rel = tile * kTile + p, m = pb + rel;  // the band's pixel
+      int tq[8];
+      float wv[8];
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        tq[g] = -1;
+        wv[g] = 0.f;
+      }
+      if (m < pe) {
+        const int r = rel / W;
+        const TapGeo g = tap_geo(b, lo + r, rel - r * W, k,
+                                 to_f(offs[p * 18 + 2 * k]),
+                                 to_f(offs[p * 18 + 2 * k + 1]),
+                                 to_f(msks[p * 9 + k]), H, W, Cin, max_dy,
+                                 1.f);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int yc = g.y0 + q / 2, xc = g.x0 + q % 2;
+          if (g.idx[q] >= 0 && yc >= t0 && yc <= t1) {
+            const int gq = (yc & 3) | ((xc & 1) << 2);
+#pragma unroll
+            for (int gg = 0; gg < 8; ++gg)
+              if (gg == gq) {
+                tq[gg] = (yc - t0) * W + xc;
+                wv[gg] = g.mk * g.wq[q];
+              }
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const unsigned hits = __ballot_sync(0xffffffffu, tq[g] >= 0);
+        const int slot = ((k * 8 + g) * 2 + h) * 32;
+        if (tq[g] >= 0) {
+          const int pos = __popc(hits & ((1u << lane) - 1u));
+          lst[slot + pos] = p | (tq[g] << 6);
+          lw[slot + pos] = wv[g];
+        }
+        if (lane == 0) cnt[(k * 8 + g) * 2 + h] = __popc(hits);
+      }
+    }
+    for (int pr = 0; pr < 5; ++pr) {
+      const int q = tile * 5 + pr, k0 = 2 * pr;
+      if (pr > 0) cp_async_wait_all();  // this pair's W (pair 0: at the top)
+      fence_async_smem();
+      __syncthreads();
+      if (ahead && q + 1 < ntiles * 5) load_pair(q + 1);
+      cp_async_commit();
+      // each warpgroup: dcols of the tile's pixels for its tap
+      const int k = k0 + wg;
+      int live = 0;
+      if (k < 9) {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) live |= cnt[k * 16 + e];
+      }
+      float* vals = reinterpret_cast<float*>(smem + L.v[wg]);
+      if (live) {
+        float d[16];
+#pragma unroll
+        for (int v = 0; v < 16; ++v) d[v] = 0.f;
+        mma_issue(d, cts, reinterpret_cast<T*>(smem + wslot(q, wg)), kp);
+        mma_wait<T, 0>(d);
+#pragma unroll
+        for (int v = 0; v < 16; ++v)
+          vals[frag_row(v) * kVS + frag_col(v)] = d[v];
+      }
+      __syncthreads();
+      if (!ahead && q + 1 < ntiles * 5) load_pair(q + 1);  // slots free
+      if (pr == 4 && tile + 1 < ntiles)  // the next tile's rows
+        load_inputs(pb + (tile + 1) * kTile);
+      cp_async_commit();
+      // each warp adds the listed corners of its cells, tap by tap
+      for (int kk = k0; kk < k0 + 2 && kk < 9; ++kk) {
+        const float* vk =
+            reinterpret_cast<const float*>(smem + L.v[kk - k0]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int slot = ((kk * 8 + grp) * 2 + h) * 32;
+          const int n = cnt[(kk * 8 + grp) * 2 + h];
+          // four entries at once where their four cells differ (the
+          // order of the adds into any one cell stays the list's)
+          int e = 0;
+          for (; e + 3 < n; e += 4) {
+            int en[4], cl[4];
+            float wn[4], vn[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              en[u] = lst[slot + e + u];
+              wn[u] = lw[slot + e + u];
+              cl[u] = en[u] >> 6;
+              vn[u] = vk[(en[u] & 63) * kVS + c];
+            }
+            if (cl[0] != cl[1] && cl[0] != cl[2] && cl[0] != cl[3] &&
+                cl[1] != cl[2] && cl[1] != cl[3] && cl[2] != cl[3]) {
+              float sn[4];
+#pragma unroll
+              for (int u = 0; u < 4; ++u) sn[u] = acc[cl[u] * kCB + c];
+#pragma unroll
+              for (int u = 0; u < 4; ++u)
+                acc[cl[u] * kCB + c] = fmaf(vn[u], wn[u], sn[u]);
+            } else {
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                float* a = acc + cl[u] * kCB + c;
+                *a = fmaf(vn[u], wn[u], *a);
+              }
+            }
+          }
+          for (; e < n; ++e) {
+            const int ea = lst[slot + e];
+            float* a = acc + (ea >> 6) * kCB + c;
+            *a = fmaf(vk[(ea & 63) * kVS + c], lw[slot + e], *a);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const long long p0 = (long long)(b * H + t0) * W;
+  for (int e = tid; e < ncell * kCB; e += kDxThreads) {
+    const int cc = e % kCB;
+    if (c0 + cc < Cin) dx[(p0 + e / kCB) * Cin + c0 + cc] = acc[e];
+  }
+}
+
+// dW = the chunks' partials, summed in chunk order
+__global__ void dcn_bwd_sum_chunks(const float* __restrict__ part,
+                           float* __restrict__ dw, long long n, int nchunks) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int ch = 0; ch < nchunks; ++ch) s += part[ch * n + i];
+    dw[i] = s;
+  }
+}
+
+// dmask, doffset = the channel slices' partials [slice][P][9][3], summed
+// in slice order
+__global__ void dcn_bwd_sum_slices(const float* __restrict__ part,
+                           float* __restrict__ doff, float* __restrict__ dmask,
+                           long long npix, int nslices) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < npix * 9; i += (long long)gridDim.x * blockDim.x) {
+    float a = 0.f, b = 0.f, c = 0.f;
+    for (int s = 0; s < nslices; ++s) {
+      const float* p = part + (s * npix * 9 + i) * 3;
+      a += p[0];
+      b += p[1];
+      c += p[2];
+    }
+    const long long m = i / 9;
+    const int k = (int)(i % 9);
+    dmask[i] = a;
+    doff[m * 18 + 2 * k] = b;
+    doff[m * 18 + 2 * k + 1] = c;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host: the launch plan (from the shapes alone) and the launches.
+// ---------------------------------------------------------------------------
+
+constexpr int kGradBlocks = 2 * kSMs;  // pass A: one wave, two per SM
+
+struct Plan {
+  int kp, nt, nslices, nchunks, tr, two, wslots, smem_a, smem_b;
+  long long ws_dw, ws_om;  // floats of dW and doffset/dmask partials
+};
+
+// 0, or cudaErrorInvalidValue where the shape does not fit shared memory
+int make_plan(int elem, int oelem, int B, int H, int W, int Cin, int Cout,
+              float max_dy, Plan* pl) {
+  if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 ||
+      (long long)B * H * W >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   const long long npix = (long long)B * H * W;
-  const dim3 grid((unsigned)((npix + kBM - 1) / kBM), 9);
-  kernel<<<grid, kThreads, L.bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const TO*>(off), ld_off,
-      static_cast<const TO*>(msk), ld_msk, static_cast<const T*>(w),
-      static_cast<const T*>(ct), dx, doff, dmask, dw, dbias, B, H, W, Cin,
-      Cout, max_dy);
-  return (int)cudaGetLastError();
+  const int tiles = cdiv(npix, kTile);
+  pl->kp = round_up(Cout, 16);
+  pl->nt = cdiv(Cout, 64);
+  if (pl->nt > 4) return (int)cudaErrorInvalidValue;
+  // pass A: pixel chunks so that the grid fills one wave of two blocks per
+  // SM (more would start a second, nearly empty wave)
+  pl->nslices = cdiv(Cin, kCA);
+  const int n = kGradBlocks / (9 * pl->nslices);
+  pl->nchunks = n < 1 ? 1 : (n > tiles ? tiles : n);
+  // two input sets (the next tile loads during this one) where they fit
+  pl->two = LayoutA(pl->kp, elem, oelem, true).bytes <= kSmemMax;
+  pl->smem_a = LayoutA(pl->kp, elem, oelem, pl->two != 0).bytes;
+  pl->ws_dw = pl->nchunks > 1 ? (long long)pl->nchunks * 9 * Cin * Cout : 0;
+  pl->ws_om = pl->nslices > 1 ? (long long)pl->nslices * npix * 27 : 0;
+  // pass B: as many rows as the accumulator holds in one block per SM;
+  // fewer rows where the grid would not cover the SMs
+  pl->wslots = kWRing;
+  if (LayoutB(pl->kp, elem, oelem, kWRing, W).bytes > kSmemMax) pl->wslots = 2;
+  const int fixed = LayoutB(pl->kp, elem, oelem, pl->wslots, 0).bytes;
+  const int cells = (kSmemMax - fixed) / (kCB * 4);
+  const int cap = cells / W < H ? cells / W : H;
+  if (cap < 1) return (int)cudaErrorInvalidValue;
+  // rows per block: the fewest waves of blocks times the source tiles each
+  // walks (its rows and the band around them)
+  const int cslices = cdiv(Cin, kCB);
+  const int reach = 2 * (int)ceilf(max_dy < 0.f ? (float)H : max_dy) + 3;
+  long long best = -1;
+  for (int tr = cap; tr >= 1; --tr) {
+    const long long waves = cdiv((long long)cdiv(H, tr) * B * cslices, kSMs);
+    const int band = tr + reach < H ? tr + reach : H;
+    const long long cost = waves * cdiv((long long)band * W, kTile);
+    if (best < 0 || cost < best) {
+      best = cost;
+      pl->tr = tr;
+    }
+  }
+  pl->smem_b = LayoutB(pl->kp, elem, oelem, pl->wslots, pl->tr * W).bytes;
+  if (pl->smem_a > kSmemMax || pl->smem_b > kSmemMax)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <typename T, typename TO, int NT>
+cudaError_t launch_grads(const T* x, const TO* off, const TO* msk,
+                         const T* w, const T* ct,
+                         float* doff, float* dmask, float* ompart,
+                         float* dwout, int B, int H, int W, int Cin,
+                         int Cout, float max_dy, float edge, const Plan& pl,
+                         cudaStream_t st) {
+  auto ka = dcn_bwd_grads<T, TO, NT>;
+  cudaError_t err = set_smem(ka, pl.smem_a);
+  if (err != cudaSuccess) return err;
+  ka<<<dim3(pl.nchunks, 9, pl.nslices), kThreads, pl.smem_a, st>>>(
+      x, off, msk, w, ct, doff, dmask, ompart, dwout, B, H, W, Cin, Cout,
+      max_dy, edge, pl.nchunks, pl.two);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TO>
+int launch_backward(const void* xv, const void* offv, const void* mskv,
+                    const void* wv,
+                    const void* ctv, float* dx, float* doff, float* dmask,
+                    float* dw, float* ws, int B, int H, int W, int Cin,
+                    int Cout, float max_dy, float edge, cudaStream_t st) {
+  Plan pl;
+  int rc = make_plan((int)sizeof(T), (int)sizeof(TO), B, H, W, Cin, Cout,
+                     max_dy, &pl);
+  if (rc) return rc;
+  if (pl.ws_dw + pl.ws_om > 0 && ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const T* x = static_cast<const T*>(xv);
+  const TO* off = static_cast<const TO*>(offv);
+  const TO* msk = static_cast<const TO*>(mskv);
+  const T* w = static_cast<const T*>(wv);
+  const T* ct = static_cast<const T*>(ctv);
+  const long long npix = (long long)B * H * W;
+  float* dwout = pl.ws_dw ? ws : dw;
+  float* ompart = pl.ws_om ? ws + pl.ws_dw : nullptr;
+  cudaError_t err;
+
+  switch (pl.nt) {
+    case 1:
+      err = launch_grads<T, TO, 1>(x, off, msk, w, ct, doff, dmask, ompart,
+                                   dwout, B, H, W, Cin, Cout, max_dy, edge,
+                                   pl, st);
+      break;
+    case 2:
+      err = launch_grads<T, TO, 2>(x, off, msk, w, ct, doff, dmask, ompart,
+                                   dwout, B, H, W, Cin, Cout, max_dy, edge,
+                                   pl, st);
+      break;
+    case 3:
+      err = launch_grads<T, TO, 3>(x, off, msk, w, ct, doff, dmask, ompart,
+                                   dwout, B, H, W, Cin, Cout, max_dy, edge,
+                                   pl, st);
+      break;
+    default:
+      err = launch_grads<T, TO, 4>(x, off, msk, w, ct, doff, dmask, ompart,
+                                   dwout, B, H, W, Cin, Cout, max_dy, edge,
+                                   pl, st);
+  }
+  if (err != cudaSuccess) return (int)err;
+
+  auto kb = dcn_bwd_dx<T, TO>;
+  if ((err = set_smem(kb, pl.smem_b)) != cudaSuccess) return (int)err;
+  kb<<<dim3(cdiv(H, pl.tr), B, cdiv(Cin, kCB)), kDxThreads, pl.smem_b,
+       st>>>(
+      off, msk, w, ct, dx, B, H, W, Cin, Cout, max_dy, pl.tr, pl.wslots);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  if (pl.ws_dw) {
+    const long long n = 9LL * Cin * Cout;
+    const int blocks = cdiv(n, 256) < 1024 ? cdiv(n, 256) : 1024;
+    dcn_bwd_sum_chunks<<<blocks, 256, 0, st>>>(ws, dw, n, pl.nchunks);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (pl.ws_om) {
+    const int blocks = cdiv(npix * 9, 256) < 1024 ? cdiv(npix * 9, 256) : 1024;
+    dcn_bwd_sum_slices<<<blocks, 256, 0, st>>>(ompart, doff, dmask, npix,
+                                       pl.nslices);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
 
-// The shared memory one block of the backward needs, in bytes (the caller
-// checks it against the card's limit).  dtype as below.
-extern "C" int cp_dcn_v2_backward_smem(int dtype, int Cout) {
-  return dtype == 1 ? Layout(Cout, true, 2).bytes
-                    : Layout(Cout, false, 4).bytes;
+// The launch plan of a backward call: out[0] = the largest dynamic shared
+// memory of its blocks in bytes (the caller checks it against the card's
+// limit), out[1] = floats of the workspace the caller allocates (0:
+// none).  dtype, off_dtype as below.  Returns 0, or cudaErrorInvalidValue
+// for a shape that does not fit.
+extern "C" int cp_dcn_v2_backward_plan(int dtype, int off_dtype, int B,
+                                       int H, int W, int Cin, int Cout,
+                                       float max_dy, long long* out) {
+  Plan pl;
+  const int rc = make_plan(dtype == 1 ? 2 : 4, off_dtype == 1 ? 2 : 4, B, H,
+                           W, Cin, Cout, max_dy, &pl);
+  if (rc) return rc;
+  out[0] = pl.smem_a > pl.smem_b ? pl.smem_a : pl.smem_b;
+  out[1] = pl.ws_dw + pl.ws_om;
+  return 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w, ct); off_dtype: the same codes
-// for offset and mask (bf16 offsets need bf16 x).  Offsets [P, ld_off],
-// mask [P, ld_msk].  dx [P, Cin], dw [9*Cin, Cout] and dbias [Cout] f32 and
-// zeroed by the caller; doffset [P, 18] and dmask [P, 9] f32.  max_dy < 0:
-// unclamped.  Returns cudaGetLastError() after the launch.
+// for offset [P, 18] and mask [P, 9] (bf16 offsets need bf16 x).  Outputs
+// f32, written in full: dx [P, Cin], doffset [P, 18], dmask [P, 9], dw
+// [9*Cin, Cout]; ws: the workspace the plan asks for (may be null when it
+// asks for none).  max_dy < 0: unclamped; edge: the clamp's gradient at
+// exactly |dy| = max_dy.  Returns 0 or the CUDA error of the first launch
+// that failed.
 extern "C" int cp_dcn_v2_backward(int dtype, int off_dtype, const void* x,
-                                  const void* off, int ld_off,
-                                  const void* msk, int ld_msk, const void* w,
-                                  const void* ct, void* dx, void* doff,
-                                  void* dmask, void* dw, void* dbias, int B,
-                                  int H, int W, int Cin, int Cout,
-                                  float max_dy, void* stream) {
+                                  const void* off, const void* msk,
+                                  const void* w, const void* ct, void* dx,
+                                  void* doff, void* dmask, void* dw, void* ws,
+                                  int B, int H, int W, int Cin, int Cout,
+                                  float max_dy, float edge, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* f[5] = {static_cast<float*>(dx), static_cast<float*>(doff),
                  static_cast<float*>(dmask), static_cast<float*>(dw),
-                 static_cast<float*>(dbias)};
+                 static_cast<float*>(ws)};
   if (dtype == 0 && off_dtype == 0)
-    return launch_backward<float, float>(x, off, ld_off, msk, ld_msk, w, ct,
-                                         f[0], f[1], f[2], f[3], f[4], B, H,
-                                         W, Cin, Cout, max_dy, s);
+    return launch_backward<float, float>(x, off, msk, w, ct, f[0], f[1],
+                                         f[2], f[3], f[4], B, H, W, Cin,
+                                         Cout, max_dy, edge, s);
   if (dtype == 1 && off_dtype == 0)
     return launch_backward<__nv_bfloat16, float>(
-        x, off, ld_off, msk, ld_msk, w, ct, f[0], f[1], f[2], f[3], f[4], B,
-        H, W, Cin, Cout, max_dy, s);
+        x, off, msk, w, ct, f[0], f[1], f[2], f[3], f[4], B, H, W, Cin, Cout,
+        max_dy, edge, s);
   if (dtype == 1 && off_dtype == 1)
     return launch_backward<__nv_bfloat16, __nv_bfloat16>(
-        x, off, ld_off, msk, ld_msk, w, ct, f[0], f[1], f[2], f[3], f[4], B,
-        H, W, Cin, Cout, max_dy, s);
+        x, off, msk, w, ct, f[0], f[1], f[2], f[3], f[4], B, H, W, Cin, Cout,
+        max_dy, edge, s);
   return (int)cudaErrorInvalidValue;
 }

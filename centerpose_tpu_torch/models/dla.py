@@ -14,7 +14,9 @@ the reference's inference policy gives the site (``site_max_dy``).  In
 train mode, as the reference with ``train=True``, it runs the offset/mask
 conv as a conv in the compute dtype and then ``ops/dcn_cuda.dcn_v2`` (K2,
 whose gradient is the backward kernel) at the training radius
-(``train_site_max_dy``).  Each is the CUDA kernel for a CUDA tensor and
+(``train_site_max_dy``); both backwards pass the clamp's gradient at
+exactly +-R that the reference's backward dispatch gives the site
+(``train_site_edge_grad``).  Each is the CUDA kernel for a CUDA tensor and
 its plain version for a CPU tensor.  At 512x512 the 16 calls of one
 forward go over 7 site shapes.
 """
@@ -30,7 +32,9 @@ import torch.nn.functional as F
 
 from centerpose_tpu_torch.models.common import BatchNorm2d, ConvBN, HeadStack
 from centerpose_tpu_torch.ops.dcn_cuda import (dcn_v2, dcn_v2_fused,
-                                               site_max_dy, train_site_max_dy)
+                                               site_max_dy,
+                                               train_site_edge_grad,
+                                               train_site_max_dy)
 
 
 class _OffsetMaskParams(nn.Module):
@@ -75,7 +79,7 @@ class DCN(nn.Module):
         xn = x.permute(0, 2, 3, 1).contiguous()
         if not self.training:
             y = dcn_v2_fused(xn, omw, omb, weight, self.bias,
-                             site_max_dy(*site))
+                             site_max_dy(*site), train_site_edge_grad(*site))
             return y.permute(0, 3, 1, 2)
         # the reference's train path: the om conv, rounded to the compute
         # dtype, then its bias in that dtype; offsets and the sigmoid-ed
@@ -86,7 +90,7 @@ class DCN(nn.Module):
         offset = om[..., :18].contiguous()
         mask = torch.sigmoid(om[..., 18:]).contiguous()
         y = dcn_v2(xn, offset, mask, weight, self.bias,
-                   train_site_max_dy(*site))
+                   train_site_max_dy(*site), train_site_edge_grad(*site))
         return y.permute(0, 3, 1, 2)
 
 

@@ -22,9 +22,10 @@ autograd the plain version of the backward kernel.  The backward runs in
 f32 as the kernels' does: the samples' rounding passes the gradient
 through unrounded, and the gradients of x, offsets, mask and weight are
 summed in f32 and cast to their input's type once.  The y-clamp passes the
-full gradient where -R <= dy <= R, inclusive, and none outside, as the
-reference kernels' ``clamp_pass`` does (``torch.clamp``'s gradient; JAX's
-``jnp.clip`` gives 0.5 at exactly +-R).
+full gradient where |dy| < R and none where |dy| > R; at exactly |dy| = R
+it passes ``edge_grad``: 1 where the reference runs its backward kernels
+(their ``clamp_pass``, inclusive), 0.5 where it falls back to the VJP of
+``jnp.clip`` (``ops/dcn_cuda.train_site_edge_grad`` picks it per site).
 """
 
 from __future__ import annotations
@@ -39,22 +40,31 @@ _KY = (-1, -1, -1, 0, 0, 0, 1, 1, 1)
 _KX = (-1, 0, 1, -1, 0, 1, -1, 0, 1)
 
 
-def clamp_dy(offset: torch.Tensor, max_dy: Optional[float]) -> torch.Tensor:
+def clamp_dy(offset: torch.Tensor, max_dy: Optional[float],
+             edge_grad: float = 1.0) -> torch.Tensor:
     """Clip the y component of every tap offset to [-max_dy, max_dy]
     (``None``: unchanged).  The semantics of ``_xla_fwd_clamped`` in the
-    JAX package: the per-site clamp of the fused TPU kernels."""
+    JAX package: the per-site clamp of the fused TPU kernels.  Its gradient
+    is 1 inside, 0 outside and ``edge_grad`` at exactly +-max_dy."""
     if max_dy is None:
         return offset
     off = offset.reshape(*offset.shape[:-1], 9, 2)
-    dy = off[..., 0].clamp(-float(max_dy), float(max_dy))
+    r = float(max_dy)
+    dy = off[..., 0].clamp(-r, r)
+    if edge_grad != 1.0:
+        # the same values; the gradient scaled by edge_grad on the edge
+        scale = torch.where(off[..., 0].abs() == r, float(edge_grad), 1.0)
+        dy = dy + (scale - 1.0) * (dy - dy.detach())
     return torch.stack([dy, off[..., 1]], -1).reshape(offset.shape)
 
 
 def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
            weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-           max_dy: Optional[float] = None) -> torch.Tensor:
+           max_dy: Optional[float] = None,
+           edge_grad: float = 1.0) -> torch.Tensor:
     """x [B,H,W,Cin], offset [B,H,W,18], mask [B,H,W,9], weight
-    [3,3,Cin,Cout] -> [B,H,W,Cout].  ``max_dy`` clips dy before sampling."""
+    [3,3,Cin,Cout] -> [B,H,W,Cout].  ``max_dy`` clips dy before sampling;
+    ``edge_grad`` is the clip's gradient at exactly +-max_dy."""
     b, h, w, cin = x.shape
     kh, kw, wcin, cout = weight.shape
     if (kh, kw) != (3, 3) or wcin != cin:
@@ -63,7 +73,7 @@ def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"offset {tuple(offset.shape)} / mask "
                          f"{tuple(mask.shape)} for x {tuple(x.shape)}")
     dev, f32 = x.device, torch.float32
-    off = clamp_dy(offset.to(f32), max_dy).reshape(b, h, w, 9, 2)
+    off = clamp_dy(offset.to(f32), max_dy, edge_grad).reshape(b, h, w, 9, 2)
     m = mask.to(f32)
     ky = torch.tensor(_KY, dtype=f32, device=dev)
     kx = torch.tensor(_KX, dtype=f32, device=dev)
@@ -99,7 +109,8 @@ def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
 
 def dcn_v2_backward_plain(x: torch.Tensor, offset: torch.Tensor,
                           mask: torch.Tensor, weight: torch.Tensor,
-                          ct: torch.Tensor, max_dy: Optional[float]):
+                          ct: torch.Tensor, max_dy: Optional[float],
+                          edge_grad: float = 1.0):
     """Plain version of the backward kernel: the gradients of ``dcn_v2`` at
     (x, offset, mask, weight, bias) for the cotangent ``ct`` [B,H,W,Cout],
     by autograd, each in its input's dtype (dbias float32)."""
@@ -108,7 +119,7 @@ def dcn_v2_backward_plain(x: torch.Tensor, offset: torch.Tensor,
                                                         weight)]
         bias = torch.zeros(weight.shape[-1], device=x.device,
                            requires_grad=True)
-        y = dcn_v2(*leaves, bias, max_dy)
+        y = dcn_v2(*leaves, bias, max_dy, edge_grad)
         return torch.autograd.grad(y, [*leaves, bias], ct.to(y.dtype))
 
 
@@ -124,9 +135,10 @@ def offset_mask(x: torch.Tensor, omw: torch.Tensor,
 
 def dcn_v2_fused_plain(x: torch.Tensor, omw: torch.Tensor, omb: torch.Tensor,
                        weight: torch.Tensor, bias: Optional[torch.Tensor],
-                       max_dy: Optional[float]) -> torch.Tensor:
+                       max_dy: Optional[float],
+                       edge_grad: float = 1.0) -> torch.Tensor:
     """Plain version of the om-fused forward (K1): the offset/mask conv,
     then the y-clamped ``dcn_v2``.  The function ``dcn_v2_pallas_fused``
     computes in the JAX package."""
     offset, mask = offset_mask(x, omw, omb)
-    return dcn_v2(x, offset, mask, weight, bias, max_dy)
+    return dcn_v2(x, offset, mask, weight, bias, max_dy, edge_grad)

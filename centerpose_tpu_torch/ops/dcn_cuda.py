@@ -1,5 +1,6 @@
 """DCNv2 site policy and the Hopper kernels: the om-fused forward (K1), the
-forward from explicit offsets (K2) and the backward (K3, K4, K5 in one).
+forward from explicit offsets (K2) and the backward (the function of K3, K4
+and K5 in one call).
 
 Counterpart of ``centerpose_tpu/ops/dcn_pallas.py``.  Three parts:
 
@@ -11,8 +12,11 @@ Counterpart of ``centerpose_tpu/ops/dcn_pallas.py``.  Three parts:
   So the function a site computes depends on that arithmetic, and the
   flagship snapshot was trained under it.  This module keeps its own copy
   of the arithmetic, so that the port computes the same function at every
-  site: ``site_max_dy`` at inference, ``train_site_max_dy`` in training.
-  It is a statement about the reference, not about H100 limits.
+  site: ``site_max_dy`` at inference, ``train_site_max_dy`` in training,
+  and ``train_site_edge_grad``, the clamp's gradient at exactly +-R, which
+  follows the reference's backward dispatch (its kernels pass 1 there, its
+  XLA fallback 0.5).  It is a statement about the reference, not about
+  H100 limits.
 * **Kernels.**  ``csrc/dcn_fused.cu`` holds K1 (offset/mask conv +
   clamped bilinear gather + GEMM) and K2 (its product kernel on explicit
   offsets and mask); ``csrc/dcn_bwd.cu`` the backward of both.  Each source
@@ -34,6 +38,7 @@ import collections
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -146,6 +151,86 @@ def _grouped_ok(h: int, w: int, cin: int, cout: int, max_dy: int = 4) -> bool:
     return _grouped_br(h, w, cin, cout, max_dy) > 0
 
 
+def _grouped_bwd_vmem(h: int, w: int, cin: int, cout: int, max_dy: int,
+                      compact: bool) -> int:
+    grp = 128 // w
+    hg = h // grp
+    br = min(8, hg)
+    pad_g = math.ceil((max_dy + 2) / grp)
+    hpad = hg + 2 * pad_g
+    xb = 2 if compact else 4
+    x_blk = xb * hpad * _roundup(cin, 8) * 128
+    dx_buf = 4 * hpad * _roundup(cin, 8) * 128
+    cols = 2 * 4 * br * _roundup(cin, 8) * 128
+    ct_blk = 2 * 4 * br * 128 * _roundup(cout, 128)
+    doffm = 2 * 4 * br * (_roundup(18, 8) + 2 * _roundup(9, 8)) * 128
+    w_in = xb * _roundup(9 * cin, 8) * _roundup(cout, 128)
+    dw = 4 * _roundup(9 * cin, 8) * _roundup(cout, 128)
+    a_buf = 4 * br * 128 * 128
+    return x_blk + dx_buf + cols + ct_blk + doffm + w_in + dw + a_buf
+
+
+def _grouped_bwd_mode(h: int, w: int, cin: int, cout: int,
+                      max_dy: int = 4) -> Optional[str]:
+    if w not in (16, 32, 64) or 128 % w:
+        return None
+    grp = 128 // w
+    hg, rem = divmod(h, grp)
+    if rem:
+        return None
+    br = min(8, hg)
+    if hg % br:
+        return None
+    if _grouped_bwd_vmem(h, w, cin, cout, max_dy, False) <= _VMEM_LIMIT:
+        return "f32"
+    if _grouped_bwd_vmem(h, w, cin, cout, max_dy, True) <= _VMEM_LIMIT:
+        return "compact"
+    return None
+
+
+def _grouped_bwd_ok(h: int, w: int, cin: int, cout: int,
+                    max_dy: int = 4) -> bool:
+    """The reference runs its fused grouped backward (K3) here."""
+    return _grouped_bwd_mode(h, w, cin, cout, max_dy) is not None
+
+
+def _rowmajor_dx_ok(h: int, w: int, cin: int, cout: int,
+                    max_dy: int = 4) -> bool:
+    if w != 128 or h % 8 or max_dy > _ROWMAJOR_DY_CAP:
+        return False
+    br = _rowmajor_br(h, w, cin, cout)
+    slab = br + 16
+    slabs = 4 * slab * (_roundup(2 * 9, 8) + _roundup(9, 8)
+                        + _roundup(cout, 8)) * w
+    dcols = 2 * slab * 9 * cin * w
+    wmat = 4 * _roundup(9 * cin, 8) * _roundup(cout, 128)
+    out_blk = 2 * 4 * br * _roundup(cin, 8) * w
+    a_buf = 4 * br * w * w
+    return slabs + dcols + wmat + out_blk + a_buf <= _VMEM_LIMIT
+
+
+def _rowmajor_grads_vmem(h: int, w: int, cin: int, cout: int) -> int:
+    br = _rowmajor_br(h, w, cin, cout)
+    slab = br + 16
+    xs = 4 * slab * _roundup(cin, 8) * w
+    in_blk = 2 * 4 * br * (_roundup(18, 8) + _roundup(9, 8)
+                           + _roundup(cout, 8)) * w
+    out_blk = 2 * 4 * br * (_roundup(18, 8) + _roundup(9, 8)) * w
+    wmats = 2 * 4 * _roundup(9 * cin, 8) * _roundup(cout, 128)
+    dcols = 2 * br * cin * w
+    cols = 4 * br * cin * w
+    a_buf = (4 + 4 + 2 + 2) * br * w * w
+    samples = 2 * 4 * br * _roundup(cin, 8) * w
+    return xs + in_blk + out_blk + wmats + dcols + cols + a_buf + samples
+
+
+def _rowmajor_split_ok(h: int, w: int, cin: int, cout: int,
+                       max_dy: int = 4) -> bool:
+    """The reference runs its split W=128 backward (K4 + K5) here."""
+    return (_rowmajor_dx_ok(h, w, cin, cout, max_dy)
+            and _rowmajor_grads_vmem(h, w, cin, cout) <= _VMEM_LIMIT)
+
+
 def pallas_supported(h: int, w: int, cin: int, cout: int, kernel: int = 3,
                      stride: int = 1, dilation: int = 1,
                      deformable_groups: int = 1, max_dy: int = 0) -> bool:
@@ -245,6 +330,27 @@ def train_site_max_dy(h: int, w: int, cin: int, cout: int, dcn_impl: str,
     return None
 
 
+@functools.lru_cache(maxsize=None)
+def train_site_edge_grad(h: int, w: int, cin: int, cout: int, dcn_impl: str,
+                         max_dy: int = 0) -> float:
+    """The gradient the y-clamp passes at exactly |dy| = R at a clamped
+    site, as the reference's ``_bwd_core`` computes it: 1.0 where it runs
+    its backward kernels (``dcn_impl="pallas_full"`` and K3's
+    ``_grouped_bwd_ok`` or K4+K5's ``_rowmajor_split_ok``), 0.5 where it
+    falls back to the VJP of ``_xla_fwd_clamped`` (``jnp.clip``'s gradient
+    on the edge): the other clamped sites, and every site under
+    ``dcn_impl="pallas"``.  1.0 at an unclamped site, where it is unused.
+    The om-fused forward's backward dispatches the same way."""
+    if train_site_max_dy(h, w, cin, cout, dcn_impl, max_dy) is None:
+        return 1.0
+    md = resolve_max_dy(h, w, cin, cout, max_dy)
+    if dcn_impl == "pallas_full" and (
+            _grouped_bwd_ok(h, w, cin, cout, md)
+            or _rowmajor_split_ok(h, w, cin, cout, md)):
+        return 1.0
+    return 0.5
+
+
 # ---------------------------------------------------------------------------
 # Kernels: build, load, launch
 # ---------------------------------------------------------------------------
@@ -331,11 +437,10 @@ def _library(name: str) -> ctypes.CDLL:
                 [i32] + [ptr] * 6 + [i32] * 5 + [f32, ptr])
             bwd = ctypes.CDLL(str(paths["bwd"]))
             bwd.cp_dcn_v2_backward.argtypes = (
-                [i32, i32, ptr, ptr, i32, ptr, i32, ptr, ptr] + [ptr] * 5
-                + [i32] * 5 + [f32, ptr])
-            bwd.cp_dcn_v2_backward_smem.argtypes = [i32, i32]
+                [i32, i32] + [ptr] * 10 + [i32] * 5 + [f32, f32, ptr])
+            bwd.cp_dcn_v2_backward_plan.argtypes = [i32] * 7 + [f32, ptr]
             for fn in (fwd.cp_dcn_v2_fused_forward, fwd.cp_dcn_v2_forward,
-                       bwd.cp_dcn_v2_backward, bwd.cp_dcn_v2_backward_smem):
+                       bwd.cp_dcn_v2_backward, bwd.cp_dcn_v2_backward_plan):
                 fn.restype = i32
             _libs.update(fwd=fwd, bwd=bwd)
         return _libs[name]
@@ -441,12 +546,29 @@ def launch_forward(x, offset, mask, weight, bias, max_dy):
     return y
 
 
-def launch_backward(x, offset, mask, weight, ct, max_dy):
+def backward_plan(dtype: torch.dtype, off_dtype: torch.dtype, b: int, h: int,
+                  w: int, cin: int, cout: int,
+                  max_dy: Optional[float]) -> dict:
+    """The backward kernel's launch plan for a shape: its largest block's
+    shared memory (bytes) and its workspace (floats: the partial sums that
+    are reduced in a fixed order)."""
+    out = (ctypes.c_longlong * 2)()
+    rc = _library("bwd").cp_dcn_v2_backward_plan(
+        _DTYPE_CODE[dtype], _DTYPE_CODE[off_dtype], b, h, w, cin, cout,
+        _radius(max_dy), out)
+    if rc != 0:
+        raise ValueError(f"dcn_v2_backward: no plan for x [{b},{h},{w},{cin}]"
+                         f" {dtype}, Cout {cout} (CUDA error {rc})")
+    return dict(smem=out[0], workspace=out[1])
+
+
+def launch_backward(x, offset, mask, weight, ct, max_dy, edge_grad):
     """One backward call (the function of K3, K4 and K5): x and weight in
     one dtype, offset [B,H,W,18] and mask [B,H,W,9] (sigmoid-ed) float32 or
     x's dtype, cotangent ct [B,H,W,Cout] -> f32 (dx, doffset, dmask, dW,
-    dbias).  dx, dW and dbias are summed with atomics, in an order that
-    varies from run to run."""
+    dbias).  ``edge_grad``: the clamp's gradient at exactly |dy| = max_dy.
+    Every sum runs in an order fixed by the shapes: two calls on the same
+    inputs give the same bits."""
     _check_x("dcn_v2_backward", x)
     b, h, w, cin = x.shape
     cout = weight.shape[-1]
@@ -460,41 +582,47 @@ def launch_backward(x, offset, mask, weight, ct, max_dy):
     _check("weight", weight, (3, 3, cin, cout), dt, dev)
     _check("ct", ct, (b, h, w, cout), dt, dev)
     lib = _library("bwd")
-    smem = lib.cp_dcn_v2_backward_smem(_DTYPE_CODE[dt], cout)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"dcn_v2_backward: Cout {cout} needs {smem} bytes "
-                         f"of shared memory (at most {_SMEM_LIMIT})")
+    plan = backward_plan(dt, odt, b, h, w, cin, cout, max_dy)
+    if plan["smem"] > _SMEM_LIMIT:
+        raise ValueError(f"dcn_v2_backward: Cout {cout} needs {plan['smem']} "
+                         f"bytes of shared memory (at most {_SMEM_LIMIT})")
     f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.zeros((b, h, w, cin), **f32)
+    dx = torch.empty((b, h, w, cin), **f32)
     doff = torch.empty((b, h, w, 18), **f32)
     dmask = torch.empty((b, h, w, 9), **f32)
-    dw = torch.zeros((3, 3, cin, cout), **f32)
-    dbias = torch.zeros((cout,), **f32)
+    dw = torch.empty((3, 3, cin, cout), **f32)
+    ws = torch.empty((plan["workspace"],), **f32)
     with torch.cuda.device(dev):
         rc = lib.cp_dcn_v2_backward(
             _DTYPE_CODE[dt], _DTYPE_CODE[odt], x.data_ptr(),
-            offset.data_ptr(), 18, mask.data_ptr(), 9, weight.data_ptr(),
+            offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
             ct.data_ptr(), dx.data_ptr(), doff.data_ptr(), dmask.data_ptr(),
-            dw.data_ptr(), dbias.data_ptr(), b, h, w, cin, cout,
-            _radius(max_dy), _stream(dev))
-    _raise_on(rc, "dcn_v2_backward", x, cout)
+            dw.data_ptr(), ws.data_ptr() if ws.numel() else None, b, h, w,
+            cin, cout, _radius(max_dy), float(edge_grad), _stream(dev))
+        _raise_on(rc, "dcn_v2_backward", x, cout)
+        # dbias in one fixed-order reduction, as the reference sums it in
+        # XLA outside its kernels
+        dbias = ct.sum((0, 1, 2), dtype=torch.float32)
     dcn_v2_backward.launches += 1
     dcn_v2_backward.launches_by_site[_site(x, cout)] += 1
     return dx, doff, dmask, dw, dbias
 
 
-def dcn_v2_backward(x, offset, mask, weight, ct, max_dy):
+def dcn_v2_backward(x, offset, mask, weight, ct, max_dy, edge_grad=1.0):
     """The backward kernel's function: gradients of ``dcn_v2`` at x,
     offset, mask, weight and bias for the cotangent ``ct``, each cast as
     the reference's ``_dcn_pallas_grouped_bwd_impl`` casts it (dx to x's
     dtype, doffset and dmask to theirs, dW to the weight's, dbias f32).
-    A CPU tensor takes the plain version (autograd of ``ops/dcn.dcn_v2``);
-    a CUDA tensor launches the kernel or raises."""
+    ``edge_grad``: the clamp's gradient at exactly |dy| = max_dy
+    (``train_site_edge_grad``).  A CPU tensor takes the plain version
+    (autograd of ``ops/dcn.dcn_v2``); a CUDA tensor launches the kernel or
+    raises."""
     if x.device.type == "cpu":
-        return dcn_v2_backward_plain(x, offset, mask, weight, ct, max_dy)
+        return dcn_v2_backward_plain(x, offset, mask, weight, ct, max_dy,
+                                     edge_grad)
     ct = ct.to(x.dtype).contiguous()
     dx, doff, dmask, dw, dbias = launch_backward(x, offset, mask, weight, ct,
-                                                 max_dy)
+                                                 max_dy, edge_grad)
     return (dx.to(x.dtype), doff.to(offset.dtype), dmask.to(mask.dtype),
             dw.to(weight.dtype), dbias)
 
@@ -504,8 +632,9 @@ class _DcnV2(torch.autograd.Function):
     ``kernel_bwd=True``)."""
 
     @staticmethod
-    def forward(ctx, x, offset, mask, weight, bias, max_dy):
+    def forward(ctx, x, offset, mask, weight, bias, max_dy, edge_grad):
         ctx.max_dy = max_dy
+        ctx.edge_grad = edge_grad
         ctx.has_bias = bias is not None
         ctx.save_for_backward(x, offset, mask, weight)
         return launch_forward(x, offset, mask, weight, bias, max_dy)
@@ -514,26 +643,27 @@ class _DcnV2(torch.autograd.Function):
     def backward(ctx, gy):
         x, offset, mask, weight = ctx.saved_tensors
         dx, doff, dmask, dw, dbias = dcn_v2_backward(
-            x, offset, mask, weight, gy, ctx.max_dy)
-        return (dx, doff, dmask, dw, dbias if ctx.has_bias else None, None)
+            x, offset, mask, weight, gy, ctx.max_dy, ctx.edge_grad)
+        return (dx, doff, dmask, dw, dbias if ctx.has_bias else None, None,
+                None)
 
 
 def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
            weight: torch.Tensor, bias: Optional[torch.Tensor],
-           max_dy: Optional[float]) -> torch.Tensor:
+           max_dy: Optional[float], edge_grad: float = 1.0) -> torch.Tensor:
     """DCNv2 forward from explicit offsets (K2), differentiable.  x
     [B,H,W,Cin] NHWC, offset [B,H,W,18] (dy, dx per tap), mask [B,H,W,9]
     (sigmoid-ed), weight [3,3,Cin,Cout], bias [Cout] or None; ``max_dy`` is
-    the site's clamp radius or None (unclamped).  -> [B,H,W,Cout] in x's
-    dtype.
+    the site's clamp radius or None (unclamped), ``edge_grad`` the clamp's
+    gradient at exactly |dy| = max_dy.  -> [B,H,W,Cout] in x's dtype.
 
     A CPU tensor takes the plain version (``ops/dcn.dcn_v2``); a CUDA
     tensor launches the kernel (x, offset, mask and weight float32 or
     bfloat16, all one dtype; bias float32; all contiguous) or raises, and
     its gradient launches the backward kernel."""
     if x.device.type == "cpu":
-        return dcn_v2_plain(x, offset, mask, weight, bias, max_dy)
-    return _DcnV2.apply(x, offset, mask, weight, bias, max_dy)
+        return dcn_v2_plain(x, offset, mask, weight, bias, max_dy, edge_grad)
+    return _DcnV2.apply(x, offset, mask, weight, bias, max_dy, edge_grad)
 
 
 class _DcnV2Fused(torch.autograd.Function):
@@ -542,9 +672,10 @@ class _DcnV2Fused(torch.autograd.Function):
     through the sigmoid, then the om conv's VJP in f32."""
 
     @staticmethod
-    def forward(ctx, x, omw, omb, weight, bias, max_dy):
+    def forward(ctx, x, omw, omb, weight, bias, max_dy, edge_grad):
         y, om = launch_fused_forward(x, omw, omb, weight, bias, max_dy)
         ctx.max_dy = max_dy
+        ctx.edge_grad = edge_grad
         ctx.has_bias = bias is not None
         ctx.save_for_backward(x, omw, omb, weight, om)
         return y
@@ -555,7 +686,8 @@ class _DcnV2Fused(torch.autograd.Function):
         offset = om[..., :18].contiguous()
         mask = om[..., 18:].contiguous()  # K1 stores the sigmoid-ed mask
         dx, doff, dmask, dw, dbias = launch_backward(
-            x, offset, mask, weight, gy.to(x.dtype).contiguous(), ctx.max_dy)
+            x, offset, mask, weight, gy.to(x.dtype).contiguous(), ctx.max_dy,
+            ctx.edge_grad)
         dom = torch.cat([doff, dmask * mask * (1.0 - mask)], -1)
         dom = dom.permute(0, 3, 1, 2)  # NCHW view
         x32 = x.float().permute(0, 3, 1, 2)
@@ -565,15 +697,17 @@ class _DcnV2Fused(torch.autograd.Function):
         dx = dx + dx_om.permute(0, 2, 3, 1)
         return (dx.to(x.dtype), domw.permute(2, 3, 1, 0).to(omw.dtype),
                 dom.sum((0, 2, 3)).to(omb.dtype), dw.to(weight.dtype),
-                dbias if ctx.has_bias else None, None)
+                dbias if ctx.has_bias else None, None, None)
 
 
 def dcn_v2_fused(x: torch.Tensor, omw: torch.Tensor, omb: torch.Tensor,
                  weight: torch.Tensor, bias: Optional[torch.Tensor],
-                 max_dy: Optional[float]) -> torch.Tensor:
+                 max_dy: Optional[float],
+                 edge_grad: float = 1.0) -> torch.Tensor:
     """Om-fused DCNv2 forward (K1), differentiable.  x [B,H,W,Cin] NHWC,
     omw [3,3,Cin,27], omb [27], weight [3,3,Cin,Cout], bias [Cout] or None;
-    ``max_dy`` is the site's clamp radius or None (unclamped).  ->
+    ``max_dy`` is the site's clamp radius or None (unclamped), ``edge_grad``
+    the clamp's gradient at exactly |dy| = max_dy in the backward.  ->
     [B,H,W,Cout] in x's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
@@ -582,8 +716,9 @@ def dcn_v2_fused(x: torch.Tensor, omw: torch.Tensor, omb: torch.Tensor,
     all contiguous) or raises, and its gradient launches the backward
     kernel."""
     if x.device.type == "cpu":
-        return dcn_v2_fused_plain(x, omw, omb, weight, bias, max_dy)
-    return _DcnV2Fused.apply(x, omw, omb, weight, bias, max_dy)
+        return dcn_v2_fused_plain(x, omw, omb, weight, bias, max_dy,
+                                  edge_grad)
+    return _DcnV2Fused.apply(x, omw, omb, weight, bias, max_dy, edge_grad)
 
 
 # Launch counts of the kernels: a successful launch adds to its wrapper's

@@ -21,6 +21,12 @@ prints one flushed line per phase with the seconds it took:
    versions (``ops/dcn.dcn_v2`` and its autograd) on one cotangent, at the 7
    site shapes, in float32 at batch 1 and bfloat16 at batch 8 (the training
    batch), with offsets that clamp at some taps;
+   then a determinism check: at the 7 site shapes, batch 8, in bfloat16
+   and float32, two backward calls on the same inputs give bit-equal dx,
+   doffset, dmask, dW and dbias; and an edge check at a 384x384 site whose
+   reference backward falls back to the VJP of ``jnp.clip`` (gradient 0.5
+   where |dy| is exactly R): the kernel with that edge against the plain
+   version, and against itself with edge 1;
 4. model check: the whole model's inference kernel path against its plain
    path on the card (head errors, overlap of the top-100 decoded centers),
    in float32 and bfloat16, and 16 K1 calls (32 kernel launches: the om
@@ -83,8 +89,7 @@ CONFIDENT = 0.1
 MATCH_SCORE = 0.05
 # K2 and the backward against their plain versions, max |kernel - plain| /
 # max |plain| per output.  float32: the same f32 products summed in another
-# order, and dx, dW and dbias summed with atomics in an order that varies
-# from run to run.  bfloat16: both compute in f32 from the same bf16
+# (fixed) order.  bfloat16: both compute in f32 from the same bf16
 # inputs and round each output to bf16 once (an ulp is 2^-8 of a value);
 # the sampled columns that dW multiplies are rounded to bf16 too, and a
 # one-ulp-of-f32 difference before that rounding may move one column
@@ -95,7 +100,8 @@ GRAD_NAMES = ("dx", "doffset", "dmask", "dW", "dbias")
 # Training model check (float32, 512x512, batch 2, kernel vs plain path):
 # the loss; each BatchNorm statistic; each parameter's gradient by its
 # relative L2 error.  The two paths differ by the kernels' f32 summation
-# order (dx and dW by atomics), which the BatchNorms and ReLUs between the
+# order (dx and dW in the kernel's fixed order), which the BatchNorms and
+# ReLUs between the
 # 16 sites carry upstream: the worst tensor read 1.72e-4 on an H100 (median
 # 2.69e-5).  A site whose backward is wrong by a percent or more moves that
 # site's own tensors by as much, ten times the limit.
@@ -560,6 +566,11 @@ def train_kernel_check():
     rs = [dc.train_site_max_dy(hw, hw, cin, cout, "pallas_full")
           for cin, cout, hw, _ in SITES]
     check(rs == [24, 12, 12, 12, 12, 12, 6], f"training site policy: {rs}")
+    # at 512 every site takes the reference's backward kernels (K3 or K4+K5),
+    # whose clamp passes the full gradient at exactly +-R
+    edges = [dc.train_site_edge_grad(hw, hw, cin, cout, "pallas_full")
+             for cin, cout, hw, _ in SITES]
+    check(edges == [1.0] * 7, f"training edge gradients at 512: {edges}")
     for i, ((cin, cout, hw, _), r) in enumerate(zip(SITES, rs)):
         for dtype, b in (("float32", 1), ("bfloat16", 1),
                          ("bfloat16", TRAIN_BATCH)):
@@ -634,6 +645,89 @@ def train_kernel_check():
                 "bound_by": bby, "library_ms": None}
             del x, off, mask, w, bias, ct
     return entries
+
+
+def determinism_check():
+    """Two backward calls on the same inputs give bit-equal gradients at
+    every site shape, batch 8, in bfloat16 and float32."""
+    import torch
+
+    from centerpose_tpu_torch.ops import dcn_cuda as dc
+
+    for i, (cin, cout, hw, _) in enumerate(SITES):
+        r = dc.train_site_max_dy(hw, hw, cin, cout, "pallas_full")
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            x, off, mask, w, _, ct = [
+                t.to("cuda", dt).contiguous()
+                for t in k2_inputs(500 + i, TRAIN_BATCH, hw, cin, cout, r)]
+            first = dc.dcn_v2_backward(x, off, mask, w, ct, r)
+            second = dc.dcn_v2_backward(x, off, mask, w, ct, r)
+            torch.cuda.synchronize()
+            same = [bool(torch.equal(a, b)) for a, b in zip(first, second)]
+            say(f"  determinism {cin}->{cout} @{hw}x{hw} {dtype} batch "
+                f"{TRAIN_BATCH}: bit-equal "
+                + " ".join(f"{n}={v}" for n, v in zip(GRAD_NAMES, same)))
+            check(all(same), f"backward not deterministic at {cin}->{cout} "
+                  f"@{hw} {dtype}: {dict(zip(GRAD_NAMES, same))}")
+            del x, off, mask, w, ct, first, second
+
+
+def edge_check():
+    """At a 384x384 site where the reference's backward falls back to the
+    VJP of jnp.clip, offsets placed exactly on +-R get gradient 0.5: the
+    kernel with that edge against the plain version (TOL_BWD), and against
+    itself with edge 1 (the dy gradient halved exactly there, every other
+    value bit-equal)."""
+    import torch
+
+    from centerpose_tpu_torch.ops import dcn_cuda as dc
+    from centerpose_tpu_torch.ops.dcn import dcn_v2_backward_plain
+
+    site = None
+    for cin, cout, stride in ((512, 256, 32), (256, 256, 16), (256, 128, 16),
+                              (128, 128, 8), (128, 64, 8), (256, 64, 16),
+                              (64, 64, 4)):
+        hw = 384 // stride
+        r = dc.train_site_max_dy(hw, hw, cin, cout, "pallas_full")
+        edge = dc.train_site_edge_grad(hw, hw, cin, cout, "pallas_full")
+        if r is not None and edge == 0.5:
+            site = (cin, cout, hw, r)
+    check(site is not None, "no 384x384 site takes the clip fallback")
+    cin, cout, hw, r = site
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        x, off, mask, w, _, ct = [
+            t.to("cuda", dt).contiguous()
+            for t in k2_inputs(600, 2, hw, cin, cout, r)]
+        dy = off[..., 0::2]
+        on_edge = torch.rand(dy.shape, device="cuda") < 0.1
+        dy[on_edge] = torch.where(dy[on_edge] < 0, -float(r), float(r)).to(dt)
+        n_edge = int((off[..., 0::2].float().abs() == r).sum().item())
+        half = dc.dcn_v2_backward(x, off, mask, w, ct, r, 0.5)
+        full = dc.dcn_v2_backward(x, off, mask, w, ct, r, 1.0)
+        ref = dcn_v2_backward_plain(x, off, mask, w, ct, r, 0.5)
+        torch.cuda.synchronize()
+        rels = {n: ((a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp_min(1e-12)).item()
+                for n, a, b in zip(GRAD_NAMES, half, ref)}
+        edge_pos = torch.zeros_like(off, dtype=torch.bool)
+        edge_pos[..., 0::2] = off[..., 0::2].float().abs() == r
+        halved = bool(torch.equal(half[1].float()[edge_pos],
+                                  0.5 * full[1].float()[edge_pos]))
+        others = bool(torch.equal(half[1][~edge_pos], full[1][~edge_pos])) \
+            and all(bool(torch.equal(a, b)) for j, (a, b)
+                    in enumerate(zip(half, full)) if j != 1)
+        say(f"  edge {cin}->{cout} @{hw}x{hw} R={r} {dtype}: {n_edge} taps "
+            f"on +-R; kernel(edge 0.5) vs plain max rel "
+            + " ".join(f"{k} {v:.1e}" for k, v in rels.items())
+            + f"; dy gradient halved there {halved}, the rest bit-equal "
+            f"{others}")
+        check(n_edge > 0, "no offset on the edge")
+        for n, v in rels.items():
+            check(v <= TOL_BWD[dtype], f"edge {n} {dtype}: rel err {v:.3e}")
+        check(halved and others, f"edge gradient {dtype}: halved {halved}, "
+              f"rest equal {others}")
 
 
 def train_cfg(dtype: str = "bfloat16"):
@@ -839,6 +933,8 @@ def main() -> int:
     phase("build CUDA library", build)
     entries = phase("kernel check", kernel_check)
     train_entries = phase("training kernel check", train_kernel_check)
+    phase("determinism check", determinism_check)
+    phase("edge check", edge_check)
 
     from centerpose_tpu_torch.weights import state_dict_from_npz
 

@@ -91,7 +91,7 @@ def _rel(a, b):
             / b.float().abs().max().clamp_min(1e-12)).item()
 
 
-# f32: summation order, and atomics in a varying order for dx, dW, dbias;
+# f32: summation order (the kernel's is fixed, the plain version's another);
 # bf16: one rounding of each output to bf16 (and of the dW columns)
 _TOL_FWD = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 _TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -157,3 +157,51 @@ def test_k1_function_gradient_matches_plain(cuda, dtype):
     for got, want in zip(*outs):
         assert got is not None and got.dtype == want.dtype
         assert _rel(got, want) <= _TOL_BWD[dtype]
+
+
+def _on_edge(off, r, frac, seed):
+    """Offsets with about ``frac`` of the dy components set exactly to
+    +-r (in the offsets' dtype)."""
+    g = torch.Generator(device=off.device).manual_seed(seed)
+    dy = off[..., 0::2]
+    pick = torch.rand(dy.shape, generator=g, device=off.device) < frac
+    dy[pick] = torch.where(dy[pick] < 0, -float(r), float(r)).to(off.dtype)
+    return int((off[..., 0::2].float().abs() == r).sum().item())
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,r", [(2, 9, 13, 40, 70, 2.0),
+                                              (1, 16, 16, 512, 256, 24),
+                                              (2, 24, 24, 64, 64, 6.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_is_bit_deterministic(cuda, b, h, w, cin, cout, r, dtype):
+    x, off, mask, wgt, _, ct = _train_args(cin + 3 * cout, b, h, w, cin, cout,
+                                           dtype, cuda, r)
+    first = dc.dcn_v2_backward(x, off, mask, wgt, ct, r)
+    second = dc.dcn_v2_backward(x, off, mask, wgt, ct, r)
+    torch.cuda.synchronize()
+    for name, a, b2 in zip(("dx", "doff", "dmask", "dW", "dbias"), first,
+                           second):
+        assert torch.equal(a, b2), name
+
+
+@pytest.mark.parametrize("edge", [0.5, 1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_edge_gradient_matches_plain(cuda, edge, dtype):
+    """Offsets exactly on +-R: the kernel passes ``edge`` of the dy
+    gradient there, as the plain version does."""
+    from centerpose_tpu_torch.ops.dcn import dcn_v2_backward_plain
+
+    r = 6.0
+    x, off, mask, wgt, _, ct = _train_args(7, 2, 24, 24, 8, 8, dtype, cuda, r)
+    assert _on_edge(off, r, 0.1, 3) > 0
+    got = dc.dcn_v2_backward(x, off, mask, wgt, ct, r, edge)
+    want = dcn_v2_backward_plain(x, off, mask, wgt, ct, r, edge)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "doff", "dmask", "dW", "dbias"), got, want):
+        assert _rel(a, b) <= _TOL_BWD[dtype], name
+    if edge != 1.0:  # exactly the edge taps' dy gradient changes
+        full = dc.dcn_v2_backward(x, off, mask, wgt, ct, r, 1.0)
+        on = torch.zeros_like(off, dtype=torch.bool)
+        on[..., 0::2] = off[..., 0::2].float().abs() == r
+        assert torch.equal(got[1].float()[on], edge * full[1].float()[on])
+        assert torch.equal(got[1][~on], full[1][~on])

@@ -1,8 +1,10 @@
 """Port parity of the training DCN: the plain K2 forward and its five
 gradients (the plain version of the backward kernel) against the JAX
 package's Pallas kernels in interpret mode and against the f32 XLA clamped
-formulation; the training site policy; and the DeformConv block in train
-mode (DCN + flax-style BatchNorm + ReLU) against the JAX module."""
+formulation; the gradient at offsets exactly on the clamp edge, per the
+reference's backward dispatch; the training site policy; and the
+DeformConv block in train mode (DCN + flax-style BatchNorm + ReLU) against
+the JAX module."""
 
 import jax
 import jax.numpy as jnp
@@ -133,6 +135,100 @@ def test_backward_wrapper_on_cpu_is_the_plain_version():
     g16 = dc.dcn_v2_backward(*[a.bfloat16() for a in args],
                              torch.from_numpy(ct).bfloat16(), 2.0)
     assert [t.dtype for t in g16] == [torch.bfloat16] * 4 + [torch.float32]
+
+
+def _edge_case(seed, h, w, cin, cout, md, frac=0.15):
+    """Random inputs with about ``frac`` of the dy offsets exactly on
+    +-md (the rest off it by more than 1e-3)."""
+    x, off, mask, wgt, bias, ct = _case(seed, 1, h, w, cin, cout, 0.8 * md,
+                                        md)
+    r = np.random.default_rng(seed + 1)
+    dy = off[..., 0::2]
+    pick = r.random(dy.shape) < frac
+    dy[pick] = np.where(dy[pick] < 0, -md, md)
+    off[..., 0::2] = dy
+    on = np.zeros(off.shape, bool)
+    on[..., 0::2] = np.abs(off[..., 0::2]) == md
+    assert on.sum() > 10
+    return (x, off, mask, wgt, bias, ct), on
+
+
+def _edge_grads(args, md, edge):
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args[:5]]
+    y = dcn_v2(*leaves, max_dy=md, edge_grad=edge)
+    y.backward(torch.from_numpy(args[5]))
+    return [t.grad.numpy() for t in leaves]
+
+
+def test_edge_gradient_at_a_fallback_site_is_half():
+    """24x24, 8->8, R=6: neither of the reference's backward kernels takes
+    it (``_bwd_core`` falls back to the VJP of ``_xla_fwd_clamped``, whose
+    ``jnp.clip`` passes 0.5 on the edge); the port's site function gives
+    0.5 and its gradients match the reference's ``dcn_v2_pallas`` VJP."""
+    h, w, cin, cout, md = 24, 24, 8, 8, 6
+    assert dp.pallas_supported(h, w, cin, cout, max_dy=md)
+    assert not dp._grouped_bwd_ok(h, w, cin, cout, md)
+    assert not dp._rowmajor_split_ok(h, w, cin, cout, md)
+    edge = dc.train_site_edge_grad(h, w, cin, cout, "pallas_full", md)
+    assert edge == 0.5
+    args, on = _edge_case(5, h, w, cin, cout, md)
+    _, g_ref = _pallas_vjp(*args, md)
+    g = _edge_grads(args, md, edge)
+    # both f32 autodiff of one formulation: summation order only
+    for name, a, b in zip(GRADS, g, g_ref):
+        assert rel_err(a, b) < 1e-5, name
+    assert np.any(g_ref[1][on] != 0)
+    # the full gradient on the edge would not match
+    g1 = _edge_grads(args, md, 1.0)
+    np.testing.assert_allclose(g[1][on], 0.5 * g1[1][on], rtol=1e-6)
+    assert rel_err(g1[1], g_ref[1]) > 1e-2
+
+
+def test_edge_gradient_at_a_k3_site_is_one():
+    """16x16, 8->16, R=3: the reference's fused grouped backward (K3, run
+    in interpret mode) takes it and its clamp passes 1 on the edge; the
+    port's site function gives 1 and its gradients match."""
+    h, w, cin, cout, md = 16, 16, 8, 16, 3
+    assert dp._grouped_bwd_ok(h, w, cin, cout, md)
+    edge = dc.train_site_edge_grad(h, w, cin, cout, "pallas_full", md)
+    assert edge == 1.0
+    args, on = _edge_case(6, h, w, cin, cout, md)
+    _, g_ref = _pallas_vjp(*args, md)
+    g = _edge_grads(args, md, edge)
+    # the Pallas kernels' bf16 one-hot/band products: ~1e-2 of the f32
+    # result at worst, as in _check_against_pallas
+    for name, a, b in zip(GRADS, g, g_ref):
+        assert rel_err(a, b) < 2e-2, name
+    # half the gradient on the edge would not match
+    g5 = _edge_grads(args, md, 0.5)
+    assert rel_err(g5[1], g_ref[1]) > 5e-2
+
+
+_SITES_BY_STRIDE = [(512, 256, 32), (256, 256, 16), (256, 128, 16),
+                    (128, 128, 8), (128, 64, 8), (256, 64, 16), (64, 64, 4)]
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas_full"])
+@pytest.mark.parametrize("res", [128, 384, 512, 640])
+@pytest.mark.parametrize("cin,cout,stride", _SITES_BY_STRIDE)
+def test_backward_dispatch_matches_reference(cin, cout, stride, res, impl):
+    """The port's copy of the reference's backward predicates, and the edge
+    gradient they give a clamped site: 1 where ``_bwd_core`` runs K3 or
+    K4+K5 (``kernel_bwd`` under pallas_full), 0.5 where it falls back to
+    the clip VJP."""
+    h = res // stride
+    md = dp.resolve_max_dy(h, h, cin, cout)
+    assert dc.resolve_max_dy(h, h, cin, cout) == md
+    assert dc._grouped_bwd_ok(h, h, cin, cout, md) == dp._grouped_bwd_ok(
+        h, h, cin, cout, md)
+    assert dc._rowmajor_split_ok(h, h, cin, cout, md) == dp._rowmajor_split_ok(
+        h, h, cin, cout, md)
+    kernel = impl == "pallas_full" and (
+        dp._grouped_bwd_ok(h, h, cin, cout, md)
+        or dp._rowmajor_split_ok(h, h, cin, cout, md))
+    clamped = dp.pallas_supported(h, h, cin, cout)
+    want = 1.0 if (kernel or not clamped) else 0.5
+    assert dc.train_site_edge_grad(h, h, cin, cout, impl) == want
 
 
 @pytest.mark.parametrize("res", [128, 384, 512, 640])
