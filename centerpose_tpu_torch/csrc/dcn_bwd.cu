@@ -23,51 +23,53 @@
 //   dW_k    = cols_k^T . ct                     (cols = m_k . sample_k, the
 //                                                forward's im2col column,
 //                                                rounded as it rounds it)
+//   dbias   = sum_p ct
 //
-// dbias = sum_p ct is one fixed-order PyTorch reduction in the wrapper, as
-// the reference sums it in XLA outside its kernels.  clamp'(dy) is 1 where
-// |dy| < R, 0 where |dy| > R, and `edge` at exactly |dy| = R: 1 where the
-// reference runs its backward kernels (their clamp_pass), 0.5 where it
-// falls back to the VJP of jnp.clip (the caller picks it per site).
+// clamp'(dy) is 1 where |dy| < R, 0 where |dy| > R, and `edge` at exactly
+// |dy| = R: 1 where the reference runs its backward kernels (their
+// clamp_pass), 0.5 where it falls back to the VJP of jnp.clip (the caller
+// picks it per site).
 //
 // Determinism.  No float atomics: every output element is summed by one
-// thread, in an order fixed by the shapes alone, so two runs on the same
-// inputs give the same bits.
+// thread in an order fixed by the shapes and the offsets, so two runs on
+// the same inputs give the same bits.  Integer atomics only count and
+// place list entries; the dx pass puts each list in key order before it
+// sums it.
 //
-// Up to four launches, each owning what it writes:
+// The launches, each owning what it writes:
 //
-//   A. dcn_bwd_grads (doffset, dmask, dW; K4's output-owned pass and K3's
-//      gradients but dx), 128 threads: a block owns one tap k, one
-//      64-channel slice of Cin and a fixed chunk of the pixels.  Its W_k
-//      slice stays in shared memory; each 64-pixel tile's cotangent,
-//      offset and mask rows arrive by cp.async during the previous tile,
-//      and dcols [64 x 64] runs on wgmma (m64n64k16, K = Cout).  A warp
-//      then walks 16 pixels, a lane 8 channels of one (16-byte loads, with
-//      no branch: an outside corner reads a valid row and gets weight 0,
-//      as the plain version's clamped index does); one gather serves three
-//      uses: dmask, ddy and ddx summed over the channels (lane sums, then
-//      a fixed butterfly over the pixel's eight lanes), and the column
-//      m . sample, rounded as the forward rounds it, written transposed
-//      into shared memory.  dW_k [64 x Cout] += cols^T . ct then runs on
-//      wgmma (K = pixels) in registers across the chunk.  The number of
-//      chunks depends on the shape only: one wave of two blocks per SM.
-//   B. dcn_bwd_dx (dx; K5's idea), 256 threads: a block owns `tr` input
-//      rows of one image, the full width, and a 32-channel slice.  It
-//      walks the band of source rows that can reach them (y-R-2 .. y+R+1
-//      around the tile, the whole height when unclamped) in 64-pixel
-//      tiles.  Per tile it computes the geometry of all nine taps once and
-//      lists, in pixel order, the corners that land in its rows, by the
-//      group (row mod 4, column parity) of their cell; per pair of taps,
-//      the two warpgroups recompute dcols of one tap each on wgmma
-//      (m64n32k16) instead of storing [P, 9, Cin] in device memory, and
-//      each of the eight warps adds the listed corners of its group into a
-//      shared-memory accumulator, a lane per channel, in list order (four
-//      entries at once where their cells differ).  A source's four corners
-//      fall in four different groups, so no two warps ever write one cell.
-//      `tr` is chosen from the shape for the fewest waves times band
-//      tiles.
-//   C. dcn_bwd_sum_chunks: dW = the chunks' partials summed in chunk order
-//      (none when there is one chunk: pass A then writes dW itself).
+//   A. dcn_bwd_grads (doffset, dmask, dW, dbias, and dcols for dx; K4's
+//      output-owned pass and K3's gradients), 128 threads: a block owns
+//      one tap k, one 64-channel slice of Cin and a fixed chunk of the
+//      pixels.  Its W_k slice stays in shared memory; each 64-pixel tile's
+//      cotangent, offset and mask rows arrive by cp.async during the
+//      previous tile, and dcols [64 x 64] runs on wgmma (m64n64k16, K =
+//      Cout).  dcols goes to G [P, 9, Cin] in x's type (the reference's K5
+//      keeps its dcols in bf16 too).  A warp then walks 16 pixels, a lane 8
+//      channels of one (16-byte loads, with no branch: an outside corner
+//      reads a valid row and gets weight 0, as the plain version's clamped
+//      index does); one gather serves three uses: dmask, ddy and ddx
+//      summed over the channels (lane sums, then a fixed butterfly over the
+//      pixel's eight lanes), and the column m . sample, rounded as the
+//      forward rounds it, written to a pixel-major tile in shared memory
+//      (one 16-byte store per lane and pixel).  dW_k [64 x Cout] += cols^T
+//      . ct then runs on wgmma (K = pixels) in registers across the chunk,
+//      both operands read in place as transposed (MN-major) tiles.  The
+//      tap-k blocks of the first slice also sum dbias's columns k, k + 9,
+//      ... in pixel order, and count the corners
+//      that land on each pixel for pass B (integer atomics into counts
+//      cleared before).  The number of chunks depends on the shape only:
+//      one wave of two blocks per SM.
+//   B. dx, the transpose of the gather as a gather (K5's idea, without
+//      its band: the lists say exactly which sources reach a pixel).
+//      dcn_bwd_scan_sums and dcn_bwd_scan turn pass A's counts into row
+//      pointers, dcn_bwd_fill writes each corner's (key = the source's
+//      G row m * 9 + k, weight w_q . m_k) into its pixel's list, and
+//      dcn_bwd_dx gives each pixel a group of 8-32 lanes: it ranks the
+//      list by key in shared memory and sums weight . G[key] over it in
+//      that order, four rows in flight, a lane 8 channels.
+//   C. dcn_bwd_sum_chunks: dW and dbias = the chunks' partials summed in
+//      chunk order (none when there is one chunk: pass A then writes them).
 //   D. dcn_bwd_sum_slices: doffset and dmask = the channel slices'
 //      partials summed in slice order (none when Cin <= 64).
 //
@@ -79,28 +81,22 @@
 // forward's, 4 * P * 9 * Cin * Cout operations, ~28 GFLOP per image at
 // dla_34 512x512, ~29 us at the bf16 tensor-core rate; the bytes (x, ct,
 // offsets, mask, W in; dx, doffset, dmask, dW out) are ~60 MB per image in
-// bf16, ~18 us.  What this design does about the old kernel's costs: no
-// float atomics (~302 M per call for dx and ~75 M for dW at 64->64 @128,
-// batch 8, before); the W_k slice loaded once per block and the corner
-// gather done once for dmask, doffset and dW; wgmma with cp.async-staged
-// operands instead of synchronous 16x16 WMMA; grids sized from the shape.
-// It is slower than the old kernel all the same (PERF.md): the passes are
-// bound by latency, not by the tensor cores or the bytes.  Clock counts
-// inside one block at 64->64 @128, batch 8 put pass B's time in the band
-// walk (geometry and lists of every band tile, ~2.9x the tile's own
-// pixels at tr = 8), its syncs and small per-tap products, and the
-// dependent shared-memory adds of the scatter; and pass A's in the corner
-// gather's global-load round trips.  Tried and measured slower: a
-// lookahead of the next pair's products (its buffers cost rows), all nine
-// taps' products per wait with a lane-per-entry scatter, three pass-A
-// blocks per SM.
+// bf16, ~18 us.  G adds its write and one read of 9 * P * Cin values (~100
+// MB per image in bf16; its repeated reads, four per row, mostly hit L2).
+// What this design does about the PR-5 kernel's costs: no float atomics
+// (~302 M per call for dx and ~75 M for dW at 64->64 @128, batch 8,
+// before; now ~4.7 M integer ones to count and place corners); the W_k
+// slice loaded once per block and the corner gather done once for dmask,
+// doffset and dW; wgmma with cp.async-staged operands instead of
+// synchronous 16x16 WMMA; grids sized from the shape, so that pass A fills
+// the SMs at batch 1 too.
 //
 // Layouts follow the JAX op: x NHWC [B,H,W,Cin], offset [P, 18] with
 // (dy, dx) of tap k at 2k, 2k+1, mask [P, 9], weight [3,3,Cin,Cout]
 // (= row-major [9*Cin, Cout]), ct [P, Cout].  x, weight and ct share one
 // type T (float or bf16); offset and mask have type TO (float or bf16).
 // Outputs are f32 and written in full: dx [P, Cin], doffset [P, 18], dmask
-// [P, 9], dW [9*Cin, Cout].
+// [P, 9], dW [9*Cin, Cout], dbias [Cout].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,13 +107,10 @@ namespace {
 constexpr int kThreads = 128;  // one warpgroup per block
 constexpr int kTile = 64;      // pixels per tile: the M of every product
 constexpr int kCA = 64;        // channels per pass-A product (its N)
-constexpr int kCB = 32;        // channels per pass-B block (its N)
-constexpr int kVS = 40;        // row stride of pass B's dcols tiles (floats)
 constexpr int kDS = 68;        // row stride of pass A's dcols tile (floats)
-constexpr int kWRing = 4;      // pass B's W slots at most: two pairs of taps
-constexpr int kDxThreads = 256;  // pass B: two warpgroups
 constexpr int kSmemMax = 232448;   // dynamic shared memory a block may use
 constexpr int kSMs = 132;
+constexpr int kGradPerSM = 2;  // pass A: blocks per SM in its one wave
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -152,6 +145,23 @@ template <typename T>
 __host__ __device__ __forceinline__ int pack_off(int r, int k, int kdim) {
   constexpr int E = 16 / (int)sizeof(T);
   return ((r >> 3) * (kdim / E) + k / E) * (8 * E) + (r & 7) * E + (k % E);
+}
+
+// the 8 elements (r, k .. k + 7) of a packed tile (k a multiple of 8) =
+// v, in the tile's type: one 16-byte store per core-matrix row
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]);
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]);
+template <typename T>
+__device__ __forceinline__ void store_packed8(T* tile, int r, int k,
+                                              int kdim, const float (&v)[8]) {
+  if constexpr (sizeof(T) == 2) {
+    store8(tile + pack_off<T>(r, k, kdim), v);
+  } else {
+    *reinterpret_cast<float4*>(tile + pack_off<T>(r, k, kdim)) =
+        make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(tile + pack_off<T>(r, k + 4, kdim)) =
+        make_float4(v[4], v[5], v[6], v[7]);
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* s, const void* g) {
@@ -199,10 +209,8 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
   }
 }
 
-// v[0..7] = p[0..7] as float, p aligned to 16 bytes (no branch)
-__device__ __forceinline__ void load8_aligned(const __nv_bfloat16* p,
-                                              float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
+// v[0..7] = the eight bf16 in u as float
+__device__ __forceinline__ void unpack8(const uint4& u, float (&v)[8]) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -210,11 +218,31 @@ __device__ __forceinline__ void load8_aligned(const __nv_bfloat16* p,
     v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
+// v[0..7] = p[0..7] as float, p aligned to 16 bytes (no branch)
+__device__ __forceinline__ void load8_aligned(const __nv_bfloat16* p,
+                                              float (&v)[8]) {
+  unpack8(*reinterpret_cast<const uint4*>(p), v);
+}
 __device__ __forceinline__ void load8_aligned(const float* p, float (&v)[8]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
   const float4 b = reinterpret_cast<const float4*>(p)[1];
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// p[0..7] = v[0..7] in p's type, p aligned to 16 bytes
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  union {
+    uint4 u;
+    __nv_bfloat16 h[8];
+  } pk;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) pk.h[j] = __float2bfloat16(v[j]);
+  *reinterpret_cast<uint4*>(p) = pk.u;
 }
 
 // ---------------------------------------------------------------------------
@@ -239,11 +267,15 @@ __device__ __forceinline__ void fence_operands(float (&d)[M]) {
   for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ uint64_t smem_desc(const void* p, int sbo) {
+// K-major operand: lbo = 128 (the next core matrix along K), sbo = the
+// next 8 rows; MN-major (transposed B): lbo = the next 8 along K, sbo = the
+// next 16 bytes along N
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo,
+                                              int sbo) {
   const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
   uint64_t d = (uint64_t)((a >> 4) & 0x3FFF);
-  d |= (uint64_t)((128 >> 4) & 0x3FFF) << 16;           // leading: along K
-  d |= (uint64_t)(((uint32_t)sbo >> 4) & 0x3FFF) << 32;  // stride: 8 rows
+  d |= (uint64_t)(((uint32_t)lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)(((uint32_t)sbo >> 4) & 0x3FFF) << 32;
   return d;  // base offset 0, layout type 0 (no swizzle)
 }
 
@@ -251,6 +283,8 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, int sbo) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
+// TA, TB: A, B MN-major (1) or K-major (0)
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_tile(float (&d)[32], uint64_t da,
                                            uint64_t db) {
   asm volatile(
@@ -258,23 +292,12 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[32], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : CP_R8(0), CP_R8(8), CP_R8(16), CP_R8(24)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-__device__ __forceinline__ void wgmma_tile(float (&d)[16], uint64_t da,
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : CP_R8(0), CP_R8(8)
-      : "l"(da), "l"(db), "r"(1));
-}
-// four k16 steps (K = 64) in one asm statement, so that ptxas issues them
-// back to back instead of waiting after each
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_k64(float (&d)[32], uint64_t a0,
                                           uint64_t a1, uint64_t a2,
                                           uint64_t a3, uint64_t b0,
@@ -286,55 +309,26 @@ __device__ __forceinline__ void wgmma_k64(float (&d)[32], uint64_t a0,
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
       "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
       "%26, %27, %28, %29, %30, %31"
-      "}, %32, %36, p, 1, 1, 0, 0;\n"
+      "}, %32, %36, p, 1, 1, %41, %42;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
       "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
       "%26, %27, %28, %29, %30, %31"
-      "}, %33, %37, p, 1, 1, 0, 0;\n"
+      "}, %33, %37, p, 1, 1, %41, %42;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
       "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
       "%26, %27, %28, %29, %30, %31"
-      "}, %34, %38, p, 1, 1, 0, 0;\n"
+      "}, %34, %38, p, 1, 1, %41, %42;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
       "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
       "%26, %27, %28, %29, %30, %31"
-      "}, %35, %39, p, 1, 1, 0, 0;\n"
+      "}, %35, %39, p, 1, 1, %41, %42;\n"
       "}\n"
       : CP_R8(0), CP_R8(8), CP_R8(16), CP_R8(24)
       : "l"(a0), "l"(a1), "l"(a2), "l"(a3), "l"(b0), "l"(b1), "l"(b2),
-        "l"(b3), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_k64(float (&d)[16], uint64_t a0,
-                                          uint64_t a1, uint64_t a2,
-                                          uint64_t a3, uint64_t b0,
-                                          uint64_t b1, uint64_t b2,
-                                          uint64_t b3) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %24, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15"
-      "}, %16, %20, p, 1, 1, 0, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15"
-      "}, %17, %21, p, 1, 1, 0, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15"
-      "}, %18, %22, p, 1, 1, 0, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15"
-      "}, %19, %23, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : CP_R8(0), CP_R8(8)
-      : "l"(a0), "l"(a1), "l"(a2), "l"(a3), "l"(b0), "l"(b1), "l"(b2),
-        "l"(b3), "r"(1));
+        "l"(b3), "r"(1), "n"(TA), "n"(TB));
 }
 
 #undef CP_R8
@@ -350,14 +344,59 @@ __device__ __forceinline__ void mma_issue(float (&d)[M],
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
   int kk = 0;
   for (; kk + 64 <= kp; kk += 64) {
-    const uint64_t a = smem_desc(A + kk * 8, sbo);
-    const uint64_t b = smem_desc(B + kk * 8, sbo);
+    const uint64_t a = smem_desc(A + kk * 8, 128, sbo);
+    const uint64_t b = smem_desc(B + kk * 8, 128, sbo);
     // the next k16 step starts 256 bytes on: 16 in the address field
-    wgmma_k64(d, a, a + 16, a + 32, a + 48, b, b + 16, b + 32, b + 48);
+    wgmma_k64<0, 0>(d, a, a + 16, a + 32, a + 48, b, b + 16, b + 32,
+                    b + 48);
   }
   for (; kk < kp; kk += 16)
-    wgmma_tile(d, smem_desc(A + kk * 8, sbo), smem_desc(B + kk * 8, sbo));
+    wgmma_tile<0, 0>(d, smem_desc(A + kk * 8, 128, sbo),
+                     smem_desc(B + kk * 8, 128, sbo));
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// bf16: D [64 x 64] += A . B over k < kTile, with A (m, k) =
+// Akm[pack_off(k, m, kCA)] and B (k, n) = Bkn[pack_off(k, n0 + n, kp)]:
+// two packed [kTile x *] tiles read as their transposes (wgmma's MN-major
+// operands: a core matrix is 8 k by 16 bytes of m or n, the next along m
+// or n 128 bytes on, the next along k ld * 16 bytes on); asynchronous
+__device__ __forceinline__ void mma_issue_kn(float (&d)[32],
+                                             const __nv_bfloat16* Akm,
+                                             const __nv_bfloat16* Bkn,
+                                             int kp, int n0) {
+  fence_operands(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  const uint64_t a = smem_desc(Akm, kCA * 16, 128);
+  const uint64_t b =
+      smem_desc(Bkn + pack_off<__nv_bfloat16>(0, n0, kp), kp * 16, 128);
+  // a k16 step: two core matrices along k
+  const int sa = 2 * kCA, sb = 2 * kp;
+  wgmma_k64<1, 1>(d, a, a + sa, a + 2 * sa, a + 3 * sa, b, b + sb,
+                  b + 2 * sb, b + 3 * sb);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// float32: the same on the CUDA cores, done on return
+__device__ __forceinline__ void mma_issue_kn(float (&d)[32], const float* Akm,
+                                             const float* Bkn, int kp,
+                                             int n0) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  const int cq = n0 + 2 * (lane & 3);
+  for (int k = 0; k < kTile; ++k) {
+    const float a0 = Akm[pack_off<float>(k, r0, kCA)];
+    const float a1 = Akm[pack_off<float>(k, r0 + 8, kCA)];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float b0 = Bkn[pack_off<float>(k, 8 * j + cq, kp)];
+      const float b1 = Bkn[pack_off<float>(k, 8 * j + cq + 1, kp)];
+      d[4 * j] = fmaf(a0, b0, d[4 * j]);
+      d[4 * j + 1] = fmaf(a0, b1, d[4 * j + 1]);
+      d[4 * j + 2] = fmaf(a1, b0, d[4 * j + 2]);
+      d[4 * j + 3] = fmaf(a1, b1, d[4 * j + 3]);
+    }
+  }
 }
 
 // float32: the same product on the CUDA cores, in the same layout, done on
@@ -450,6 +489,13 @@ __device__ __forceinline__ TapGeo tap_geo(int m, int k, float dy, float dxo,
                  edge);
 }
 
+// the weight with which corner q of g (made with Cin = 1: idx = the
+// corners' pixels) adds to its pixel's dx; pass A's count and the fill
+// list exactly the corners where it is nonzero, by this one expression
+__device__ __forceinline__ float corner_weight(const TapGeo& g, int q) {
+  return g.idx[q] >= 0 ? g.wq[q] * g.mk : 0.f;
+}
+
 // n contiguous elements from global to shared memory: 16-byte chunks by
 // cp.async where aligned (the caller commits and waits), the rest plainly
 template <typename TO>
@@ -471,8 +517,8 @@ __device__ __forceinline__ void copy_rows(TO* dst, const TO* __restrict__ src,
 __host__ __device__ constexpr int align128(int v) { return round_up(v, 128); }
 
 struct LayoutA {  // W_k slice, inputs (one or two sets: ct tile, offset
-                  // and mask rows), cols^T, ct^T, dcols, geometry
-  int ct[2], offs[2], msks[2], at, bt, dc, geo, bytes;
+                  // and mask rows), cols, dcols, geometry
+  int ct[2], offs[2], msks[2], at, dc, geo, bytes;
   __host__ __device__ LayoutA(int kp, int elem, int oelem, bool two) {
     const int in = align128(kTile * kp * elem) +
                    align128(kTile * 18 * oelem) + align128(kTile * 9 * oelem);
@@ -485,37 +531,18 @@ struct LayoutA {  // W_k slice, inputs (one or two sets: ct tile, offset
     }
     o += in;
     at = o;
-    bt = at + align128(kCA * kTile * elem);
-    dc = bt + align128(64 * kTile * elem);
+    dc = at + align128(kCA * kTile * elem);
     geo = dc + align128(kTile * kDS * 4);
     bytes = geo + 4 * kTile * 8 + 18 * kTile * 4;
   }
 };
 
-struct LayoutB {  // ct tile, rows, W slots, dcols, hit lists, accumulator
-  int offs, msks, w[kWRing], v[2], lst, lw, cnt, acc, bytes;
-  // wslots: 4 (the next pair of W slices loads during this pair) or 2
-  __host__ __device__ LayoutB(int kp, int elem, int oelem, int wslots,
-                              int cells) {
-    offs = align128(kTile * kp * elem);
-    msks = offs + align128(kTile * 18 * oelem);
-    w[0] = msks + align128(kTile * 9 * oelem);
-    for (int i = 1; i < kWRing; ++i)
-      w[i] = w[i - 1] + (i < wslots ? align128(kCB * kp * elem) : 0);
-    v[0] = w[wslots - 1] + align128(kCB * kp * elem);  // dcols of a pair
-    v[1] = v[0] + align128(kTile * kVS * 4);
-    lst = v[1] + align128(kTile * kVS * 4);
-    lw = lst + 9 * 8 * kTile * 4;
-    cnt = lw + 9 * 8 * kTile * 4;
-    acc = align128(cnt + 9 * 16 * 4);
-    bytes = acc + cells * kCB * 4;
-  }
-};
-
 // ---------------------------------------------------------------------------
-// Pass A: doffset, dmask and dW.  Grid [pixel chunks, taps, 64-channel
-// slices]; chunk ch holds pixel tiles [ch * tiles / n, (ch + 1) * tiles / n).
-// NT: 64-wide column tiles of dW the block holds (Cout <= 64 NT).
+// Pass A: doffset, dmask, dW, dbias and G = dcols.  Grid [pixel chunks,
+// taps, 64-channel slices]; chunk ch holds pixel tiles [ch * tiles / n,
+// (ch + 1) * tiles / n).  NT: 64-wide column tiles of dW the block holds
+// (Cout <= 64 NT).  dW and dbias go to chunk ch's partial (cstride floats
+// apart; cstride 0: one chunk, the outputs themselves).
 // ---------------------------------------------------------------------------
 
 template <typename T, typename TO, int NT>
@@ -524,14 +551,15 @@ dcn_bwd_grads(const T* __restrict__ x, const TO* __restrict__ off,
              const TO* __restrict__ msk, const T* __restrict__ wt,
              const T* __restrict__ ct, float* __restrict__ doff,
              float* __restrict__ dmask, float* __restrict__ ompart,
-             float* __restrict__ dwout, int B, int H, int W, int Cin,
-             int Cout, float max_dy, float edge, int nchunks, int two) {
+             float* __restrict__ dwout, float* __restrict__ dbout,
+             long long cstride, T* __restrict__ gcol, int gstride,
+             int* __restrict__ cnt, int B, int H, int W, int Cin, int Cout,
+             float max_dy, float edge, int nchunks, int two) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int kp = round_up(Cout, 16);
   const LayoutA L(kp, (int)sizeof(T), (int)sizeof(TO), two != 0);
   T* wsl = reinterpret_cast<T*>(smem);              // W_k slice [64 x kp]
-  T* at = reinterpret_cast<T*>(smem + L.at);        // cols^T [64 c x 64 p]
-  T* bt = reinterpret_cast<T*>(smem + L.bt);        // ct^T [64 n x 64 p]
+  T* at = reinterpret_cast<T*>(smem + L.at);        // cols [64 p x 64 c]
   float* dc = reinterpret_cast<float*>(smem + L.dc);  // dcols [64][kDS]
   // per pixel: the corners' x rows (a valid row where the corner is
   // outside: its weights are 0 there, as the plain version's clamped
@@ -551,7 +579,10 @@ dcn_bwd_grads(const T* __restrict__ x, const TO* __restrict__ off,
   const int tiles = cdiv(npix, kTile);
   const int j0 = (int)((long long)ch * tiles / nchunks);
   const int j1 = (int)((long long)(ch + 1) * tiles / nchunks);
-  const T zero = from_f<T>(0.f);
+  // dbias: the block of tap k (first slice) sums columns k, k + 9, ...
+  const int nb = k + 9 * tid;
+  const bool sums_bias = slice == 0 && nb < Cout;
+  float bacc = 0.f;
 
   // cotangent, offset and mask rows of a tile into input set `buf`
   auto load_inputs = [&](int m0, int buf) {
@@ -573,6 +604,12 @@ dcn_bwd_grads(const T* __restrict__ x, const TO* __restrict__ off,
   for (int t = 0; t < NT; ++t)
 #pragma unroll
     for (int v = 0; v < 32; ++v) dw[t][v] = 0.f;
+  auto retire_dw = [&]() {  // wait for this warpgroup's dW products
+    if constexpr (sizeof(T) == 2)
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int t = 0; t < NT; ++t) fence_operands(dw[t]);
+  };
 
   for (int j = j0; j < j1; ++j) {
     const int m0 = j * kTile;
@@ -580,6 +617,7 @@ dcn_bwd_grads(const T* __restrict__ x, const TO* __restrict__ off,
     T* cts = reinterpret_cast<T*>(smem + L.ct[buf]);      // ct tile
     const TO* offs = reinterpret_cast<TO*>(smem + L.offs[buf]);
     const TO* msks = reinterpret_cast<TO*>(smem + L.msks[buf]);
+    retire_dw();  // the last tile's products read its inputs and cols
     cp_async_wait_all();
     fence_async_smem();
     __syncthreads();
@@ -592,13 +630,16 @@ dcn_bwd_grads(const T* __restrict__ x, const TO* __restrict__ off,
       if (m < npix) {
         const TapGeo g = tap_geo(m, k, to_f(offs[tid * 18 + 2 * k]),
                                  to_f(offs[tid * 18 + 2 * k + 1]),
-                                 to_f(msks[tid * 9 + k]), H, W, Cin, max_dy,
+                                 to_f(msks[tid * 9 + k]), H, W, 1, max_dy,
                                  edge);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
+          // the dx pass's count of the corners that land on each pixel
+          if (slice == 0 && corner_weight(g, q) != 0.f)
+            atomicAdd(cnt + g.idx[q], 1);
           const float e = g.idx[q] >= 0 ? 1.f : 0.f;
           const float wy = q < 2 ? -1.f : 1.f, wx = q % 2 ? 1.f : -1.f;
-          gidx[q * kTile + tid] = g.idx[q] >= 0 ? g.idx[q] : 0;
+          gidx[q * kTile + tid] = g.idx[q] >= 0 ? g.idx[q] * Cin : 0;
           gw[q * kTile + tid] = g.wq[q] * e;
           gw[(4 + q) * kTile + tid] = g.wq[q] * e * g.mk;
           gw[(8 + q) * kTile + tid] =
@@ -618,25 +659,59 @@ dcn_bwd_grads(const T* __restrict__ x, const TO* __restrict__ off,
         s_mk[tid] = s_pass[tid] = 0.f;
       }
     }
+    if (sums_bias)  // in pixel order (rows past the last pixel are 0)
+      for (int p = 0; p < kTile; ++p) bacc += to_f(cts[pack_off<T>(p, nb, kp)]);
+
+    // a warp walks 16 pixels, four at a time; a lane owns 8 channels of one
+    // of them (16-byte loads; eight lanes cover the 64-channel slice).
+    // Every load is from a valid address: the weights mask the rest
+    // (channels past Cin read channel 0; their dcols are 0).  bf16 with
+    // Cout <= 128: the rows of all four of the lane's pixels are loaded at
+    // once, raw, before the dcols product, so that their latency overlaps
+    // it; otherwise two pixels' rows at a time, after it.
+    const int cg = (lane >> 2) * 8, ps = lane & 3, c = c0 + cg;
+    const bool vec = (Cin & 7) == 0;  // 16-byte aligned, whole groups
+    constexpr bool kEarly = sizeof(T) == 2 && NT <= 2;
+    uint4 raw[kEarly ? 4 : 1][4];  // [pixel][corner]
+    if constexpr (kEarly) {
+      __syncthreads();  // the geometry
+      if (vec) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            raw[i][q] = *reinterpret_cast<const uint4*>(
+                x + gidx[q * kTile + warp * 16 + 4 * i + ps] +
+                (c < Cin ? c : 0));
+      }
+    }
+
     // dcols [64 pixels x 64 channels] of tap k
     float d[32];
 #pragma unroll
     for (int v = 0; v < 32; ++v) d[v] = 0.f;
     mma_issue(d, cts, wsl, kp);
-    mma_wait<T, 0>(d);  // also retires the previous tile's dW products
-#pragma unroll
-    for (int t = 0; t < NT; ++t) fence_operands(dw[t]);
+    mma_wait<T, 0>(d);
 #pragma unroll
     for (int v = 0; v < 32; ++v) dc[frag_row(v) * kDS + frag_col(v)] = d[v];
     __syncthreads();
+    // G rows (m, k), channels c0.., in x's type, for the dx pass
+    for (int e = tid; e < kTile * (kCA / 8); e += kThreads) {
+      const int p = e >> 3, cq = (e & 7) * 8;
+      if (m0 + p < npix && c0 + cq < gstride) {
+        float v[8];
+        const float4* q = reinterpret_cast<const float4*>(dc + p * kDS + cq);
+        const float4 a = q[0], b = q[1];
+        v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+        v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+        store8(gcol + ((long long)(m0 + p) * 9 + k) * gstride + c0 + cq, v);
+      }
+    }
 
-    // a warp walks 16 pixels, four at a time; a lane owns 8 channels of one
-    // of them (16-byte loads; eight lanes cover the 64-channel slice):
-    // corners, sample, its derivatives; dmask, ddy, ddx summed over the
-    // channels (the lane's eight, then the eight lanes' by a fixed
-    // butterfly), and the column m . sample into cols^T
-    const int cg = (lane & 7) * 8, ps = lane >> 3, c = c0 + cg;
-    const bool vec = (Cin & 7) == 0;  // 16-byte aligned, whole groups
+    // per pixel: corners, sample, its derivatives; dmask, ddy, ddx summed
+    // over the channels (the lane's eight, then the eight lanes' by a fixed
+    // butterfly), and the column m . sample into the cols tile
+#pragma unroll
     for (int h = 0; h < 2; ++h) {  // two pixels of the lane at a time
       float va[2][4][8];  // [pixel][corner][channel]
 #pragma unroll
@@ -644,9 +719,13 @@ dcn_bwd_grads(const T* __restrict__ x, const TO* __restrict__ off,
         const int p = warp * 16 + 4 * (2 * h + i) + ps;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          // every load from a valid address: the weights mask the rest
-          // (channels past Cin read channel 0; their dcols are 0)
           const long long idx = gidx[q * kTile + p];
+          if constexpr (kEarly) {
+            if (vec) {
+              unpack8(raw[2 * h + i][q], va[i][q]);
+              continue;
+            }
+          }
           if (vec) {
             load8_aligned(x + idx + (c < Cin ? c : 0), va[i][q]);
           } else {
@@ -665,7 +744,7 @@ dcn_bwd_grads(const T* __restrict__ x, const TO* __restrict__ off,
 #pragma unroll
           for (int q = 0; q < 4; ++q) w[r][q] = gw[(4 * r + q) * kTile + p];
         const float mk = s_mk[p];
-        float pa = 0.f, pb = 0.f, pc = 0.f;
+        float pa = 0.f, pb = 0.f, pc = 0.f, cv[8];
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           float sv = 0.f, col = 0.f, gy = 0.f, gx = 0.f;
@@ -681,15 +760,16 @@ dcn_bwd_grads(const T* __restrict__ x, const TO* __restrict__ off,
           pa = fmaf(dd, sv, pa);
           pb = fmaf(dd, gy, pb);
           pc = fmaf(dd, gx, pc);
-          at[pack_off<T>(cg + j, p, kTile)] = from_f<T>(col);
+          cv[j] = col;
         }
+        store_packed8(at, p, cg, kCA, cv);
 #pragma unroll
-        for (int o = 4; o > 0; o >>= 1) {
+        for (int o = 16; o > 2; o >>= 1) {
           pa += __shfl_xor_sync(0xffffffffu, pa, o);
           pb += __shfl_xor_sync(0xffffffffu, pb, o);
           pc += __shfl_xor_sync(0xffffffffu, pc, o);
         }
-        if ((lane & 7) == 0 && m < npix) {
+        if (lane < 4 && m < npix) {
           const float ddy = pb * mk * s_pass[p], ddx = pc * mk;
           if (one_slice) {
             dmask[(long long)m * 9 + k] = pa;
@@ -704,258 +784,262 @@ dcn_bwd_grads(const T* __restrict__ x, const TO* __restrict__ off,
         }
       }
     }
-    // dW_k[c, n] += cols^T . ct on the tensor cores, one 64-wide column
-    // tile of ct^T (built from the cotangent tile, zero past Cout) at a
-    // time; the last one runs on into the next tile
+    // dW_k[c, n] += cols^T . ct on the tensor cores (K = the tile's
+    // pixels), the cotangent tile read as its transpose, one 64-wide column
+    // tile at a time; the products run on into the next tile
+    fence_async_smem();
+    __syncthreads();
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      if (t > 0) {
-        mma_wait<T, 0>(dw[t - 1]);
-        __syncthreads();
-      }
-      // item: one output n, 16 bytes of consecutive pixels
-      constexpr int E = 16 / (int)sizeof(T);
-      for (int e = tid; e < 64 * (kTile / E); e += kThreads) {
-        const int nl = e / (kTile / E), p0 = (e % (kTile / E)) * E;
-        const int n = t * 64 + nl;
-        union {
-          uint4 u;
-          T h[E];
-        } pk;
-#pragma unroll
-        for (int i = 0; i < E; ++i)
-          pk.h[i] = n < kp ? cts[pack_off<T>(p0 + i, n, kp)] : zero;
-        *reinterpret_cast<uint4*>(bt + pack_off<T>(nl, p0, kTile)) = pk.u;
-      }
-      fence_async_smem();
+    for (int t = 0; t < NT; ++t) mma_issue_kn(dw[t], at, cts, kp, t * 64);
+    if (!two && j + 1 < j1) {  // the products read the one input set
+      retire_dw();
       __syncthreads();
-      mma_issue(dw[t], at, bt, kTile);
-    }
-    if (!two && j + 1 < j1) {
       load_inputs(m0 + kTile, 0);
       cp_async_commit();
     }
   }
-  if constexpr (sizeof(T) == 2)
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  retire_dw();
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
-    fence_operands(dw[t]);
 #pragma unroll
     for (int v = 0; v < 32; ++v) {
       const int cc = c0 + frag_row(v), n = t * 64 + frag_col(v);
       if (cc < Cin && n < Cout)
-        dwout[(((long long)ch * 9 + k) * Cin + cc) * Cout + n] = dw[t][v];
+        dwout[ch * cstride + ((long long)k * Cin + cc) * Cout + n] = dw[t][v];
     }
   }
+  if (sums_bias) dbout[ch * cstride + nb] = bacc;
 }
 
 // ---------------------------------------------------------------------------
-// Pass B: dx.  Grid [row tiles of tr rows, images, 32-channel slices];
-// kDxThreads threads: two warpgroups compute the dcols of two taps at once,
-// and each of the eight warps owns the destination cells of one group
-// (row mod 4, column parity).
+// dx by destination.  Pass A wrote dcols_k of every pixel (G [P, 9, cg]);
+// the corners of every (pixel, tap) are listed by the pixel they land on
+// (count, scan, fill: the transpose of the gather in CSR form), and each
+// destination sums m . w_q . dcols over its list in key order (key = the
+// source's row m * 9 + k of G).
 // ---------------------------------------------------------------------------
 
-template <typename T, typename TO>
-__global__ void __launch_bounds__(kDxThreads)
-dcn_bwd_dx(const TO* __restrict__ off, const TO* __restrict__ msk,
-          const T* __restrict__ wt, const T* __restrict__ ct,
-          float* __restrict__ dx, int B, int H, int W, int Cin, int Cout,
-          float max_dy, int tr, int wslots) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int kp = round_up(Cout, 16);
-  const LayoutB L(kp, (int)sizeof(T), (int)sizeof(TO), wslots, tr * W);
-  const bool ahead = wslots == kWRing;  // W of the next pair during this
-  T* cts = reinterpret_cast<T*>(smem);
-  TO* offs = reinterpret_cast<TO*>(smem + L.offs);  // the tile's offsets
-  TO* msks = reinterpret_cast<TO*>(smem + L.msks);  // and mask rows
-  float* acc = reinterpret_cast<float*>(smem + L.acc);    // [cells][32]
-  // hits of a source tile per (tap, cell group, half of the tile): entries
-  // p | cell << 6 in pixel order, their weights, their counts
-  int* lst = reinterpret_cast<int*>(smem + L.lst);    // [9][8][2][32]
-  float* lw = reinterpret_cast<float*>(smem + L.lw);  // [9][8][2][32]
-  int* cnt = reinterpret_cast<int*>(smem + L.cnt);    // [9][8][2]
+// geometry of item i = m * 9 + k (pixel m, tap k); idx = the corners' pixels
+template <typename TO>
+__device__ __forceinline__ TapGeo item_geo(const TO* __restrict__ off,
+                                           const TO* __restrict__ msk,
+                                           long long i, int H, int W,
+                                           float max_dy) {
+  const int m = (int)(i / 9), k = (int)(i - 9LL * m);
+  return tap_geo(m, k, to_f(off[2 * i]), to_f(off[2 * i + 1]),
+                 to_f(msk[i]), H, W, 1, max_dy, 1.f);
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wg = tid >> 7;  // warpgroup: the tap of a pair it multiplies
-  const int t0 = blockIdx.x * tr, t1 = min(H, t0 + tr) - 1;
-  const int b = blockIdx.y, c0 = blockIdx.z * kCB;
-  int lo = 0, hi = H - 1;
-  if (max_dy >= 0.f) {  // rows whose samples can reach rows t0..t1
-    const int rc = (int)ceilf(max_dy);
-    lo = max(0, t0 - rc - 2);
-    hi = min(H - 1, t1 + rc + 1);
-  }
-  const int pb = (b * H + lo) * W, pe = (b * H + hi + 1) * W;
-  const int ntiles = cdiv(pe - pb, kTile);
-  const int ncell = (t1 - t0 + 1) * W;
-  const long long wtap = (long long)Cin * Cout;
+// rowptr = the exclusive prefix sum of cnt [n] (rowptr [n + 1]), in two
+// launches: the sum of each kScan-element block, then each block's scan
+// from the sum of the blocks before it
+constexpr int kScan = 1024;
 
-  auto load_inputs = [&](int m0) {  // cotangent, offset and mask rows
-    const int rows = min(kTile, pe - m0);
-    load_tile(cts, ct, m0, kTile, pe, Cout, kp);
-    copy_rows(offs, off + (long long)m0 * 18, rows * 18);
-    copy_rows(msks, msk + (long long)m0 * 9, rows * 9);
-  };
-  // the W slices of a pair of taps (k, k + 1 where k < 8): pair q of the
-  // block's sequence into slots 2 (q % 2) and 2 (q % 2) + 1 (four slots)
-  // or 0 and 1 (two)
-  auto wslot = [&](int q, int i) { return L.w[(ahead ? 2 * (q & 1) : 0) + i]; };
-  auto load_pair = [&](int q) {
-    const int k = 2 * (q % 5);
-    for (int i = 0; i < 2 && k + i < 9; ++i)
-      load_tile(reinterpret_cast<T*>(smem + wslot(q, i)),
-                wt + (k + i) * wtap, c0, kCB, Cin, Cout, kp);
-  };
-  for (int e = tid; e < ncell * kCB; e += kDxThreads) acc[e] = 0.f;
-  load_inputs(pb);
-  load_pair(0);
-  cp_async_commit();
+__device__ __forceinline__ int block_sum(int v, int* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();  // red may still be read from a previous call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
 
-  const int grp = warp, c = lane;  // scatter: the warp's cells, the lane's
-                                   // channel
-  for (int tile = 0; tile < ntiles; ++tile) {
-    cp_async_wait_all();
-    __syncthreads();  // the tile's rows are here
-    // geometry of the tile's 64 pixels at all nine taps: item i = 64 k + p,
-    // one warp per half tile of one tap; each corner in the tile is listed
-    // under its cell's group
-    for (int i0 = warp * 32; i0 < 9 * kTile; i0 += kDxThreads) {
-      const int i = i0 + lane, k = i / kTile, p = i % kTile, h = p >> 5;
-      const int rel = tile * kTile + p, m = pb + rel;  // the band's pixel
-      int tq[8];
-      float wv[8];
+__global__ void __launch_bounds__(kScan)
+dcn_bwd_scan_sums(const int* __restrict__ cnt, int* __restrict__ bsum,
+                  long long n) {
+  __shared__ int red[32];
+  const long long i = (long long)blockIdx.x * kScan + threadIdx.x;
+  const int s = block_sum(i < n ? cnt[i] : 0, red);
+  if (threadIdx.x == 0) bsum[blockIdx.x] = s;
+}
+
+__global__ void __launch_bounds__(kScan)
+dcn_bwd_scan(const int* __restrict__ cnt, const int* __restrict__ bsum,
+             int* __restrict__ rowptr, long long n) {
+  __shared__ int red[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int base = 0;
+  for (int j = threadIdx.x; j < (int)blockIdx.x; j += kScan) base += bsum[j];
+  base = block_sum(base, red);
+  const long long i = (long long)blockIdx.x * kScan + threadIdx.x;
+  const int v = i < n ? cnt[i] : 0;
+  int inc = v;  // inclusive scan within the warp
 #pragma unroll
-      for (int g = 0; g < 8; ++g) {
-        tq[g] = -1;
-        wv[g] = 0.f;
-      }
-      if (m < pe) {
-        const int r = rel / W;
-        const TapGeo g = tap_geo(b, lo + r, rel - r * W, k,
-                                 to_f(offs[p * 18 + 2 * k]),
-                                 to_f(offs[p * 18 + 2 * k + 1]),
-                                 to_f(msks[p * 9 + k]), H, W, Cin, max_dy,
-                                 1.f);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int yc = g.y0 + q / 2, xc = g.x0 + q % 2;
-          if (g.idx[q] >= 0 && yc >= t0 && yc <= t1) {
-            const int gq = (yc & 3) | ((xc & 1) << 2);
-#pragma unroll
-            for (int gg = 0; gg < 8; ++gg)
-              if (gg == gq) {
-                tq[gg] = (yc - t0) * W + xc;
-                wv[gg] = g.mk * g.wq[q];
-              }
-          }
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < 8; ++g) {
-        const unsigned hits = __ballot_sync(0xffffffffu, tq[g] >= 0);
-        const int slot = ((k * 8 + g) * 2 + h) * 32;
-        if (tq[g] >= 0) {
-          const int pos = __popc(hits & ((1u << lane) - 1u));
-          lst[slot + pos] = p | (tq[g] << 6);
-          lw[slot + pos] = wv[g];
-        }
-        if (lane == 0) cnt[(k * 8 + g) * 2 + h] = __popc(hits);
-      }
-    }
-    for (int pr = 0; pr < 5; ++pr) {
-      const int q = tile * 5 + pr, k0 = 2 * pr;
-      if (pr > 0) cp_async_wait_all();  // this pair's W (pair 0: at the top)
-      fence_async_smem();
-      __syncthreads();
-      if (ahead && q + 1 < ntiles * 5) load_pair(q + 1);
-      cp_async_commit();
-      // each warpgroup: dcols of the tile's pixels for its tap
-      const int k = k0 + wg;
-      int live = 0;
-      if (k < 9) {
-#pragma unroll
-        for (int e = 0; e < 16; ++e) live |= cnt[k * 16 + e];
-      }
-      float* vals = reinterpret_cast<float*>(smem + L.v[wg]);
-      if (live) {
-        float d[16];
-#pragma unroll
-        for (int v = 0; v < 16; ++v) d[v] = 0.f;
-        mma_issue(d, cts, reinterpret_cast<T*>(smem + wslot(q, wg)), kp);
-        mma_wait<T, 0>(d);
-#pragma unroll
-        for (int v = 0; v < 16; ++v)
-          vals[frag_row(v) * kVS + frag_col(v)] = d[v];
-      }
-      __syncthreads();
-      if (!ahead && q + 1 < ntiles * 5) load_pair(q + 1);  // slots free
-      if (pr == 4 && tile + 1 < ntiles)  // the next tile's rows
-        load_inputs(pb + (tile + 1) * kTile);
-      cp_async_commit();
-      // each warp adds the listed corners of its cells, tap by tap
-      for (int kk = k0; kk < k0 + 2 && kk < 9; ++kk) {
-        const float* vk =
-            reinterpret_cast<const float*>(smem + L.v[kk - k0]);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int slot = ((kk * 8 + grp) * 2 + h) * 32;
-          const int n = cnt[(kk * 8 + grp) * 2 + h];
-          // four entries at once where their four cells differ (the
-          // order of the adds into any one cell stays the list's)
-          int e = 0;
-          for (; e + 3 < n; e += 4) {
-            int en[4], cl[4];
-            float wn[4], vn[4];
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              en[u] = lst[slot + e + u];
-              wn[u] = lw[slot + e + u];
-              cl[u] = en[u] >> 6;
-              vn[u] = vk[(en[u] & 63) * kVS + c];
-            }
-            if (cl[0] != cl[1] && cl[0] != cl[2] && cl[0] != cl[3] &&
-                cl[1] != cl[2] && cl[1] != cl[3] && cl[2] != cl[3]) {
-              float sn[4];
-#pragma unroll
-              for (int u = 0; u < 4; ++u) sn[u] = acc[cl[u] * kCB + c];
-#pragma unroll
-              for (int u = 0; u < 4; ++u)
-                acc[cl[u] * kCB + c] = fmaf(vn[u], wn[u], sn[u]);
-            } else {
-#pragma unroll
-              for (int u = 0; u < 4; ++u) {
-                float* a = acc + cl[u] * kCB + c;
-                *a = fmaf(vn[u], wn[u], *a);
-              }
-            }
-          }
-          for (; e < n; ++e) {
-            const int ea = lst[slot + e];
-            float* a = acc + (ea >> 6) * kCB + c;
-            *a = fmaf(vk[(ea & 63) * kVS + c], lw[slot + e], *a);
-          }
-        }
-      }
-    }
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += u;
   }
   __syncthreads();
-  const long long p0 = (long long)(b * H + t0) * W;
-  for (int e = tid; e < ncell * kCB; e += kDxThreads) {
-    const int cc = e % kCB;
-    if (c0 + cc < Cin) dx[(p0 + e / kCB) * Cin + c0 + cc] = acc[e];
+  if (lane == 31) red[warp] = inc;
+  __syncthreads();
+  int before = 0;
+  for (int w = 0; w < warp; ++w) before += red[w];
+  if (i <= n) rowptr[i] = base + before + inc - v;
+}
+
+// ent[rowptr[d] ..] = (key, weight) of the corners that land on pixel d,
+// in the order of their slots (decided by the atomics: the dx pass sorts)
+template <typename TO>
+__global__ void dcn_bwd_fill(const TO* __restrict__ off,
+                             const TO* __restrict__ msk,
+                             const int* __restrict__ rowptr,
+                             int* __restrict__ cnt, int2* __restrict__ ent,
+                             int B, int H, int W, float max_dy) {
+  const long long n = 9LL * B * H * W;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const TapGeo g = item_geo(off, msk, i, H, W, max_dy);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float w = corner_weight(g, q);
+      if (w != 0.f) {
+        const int d = (int)g.idx[q];
+        const int slot = atomicSub(cnt + d, 1) - 1;
+        ent[rowptr[d] + slot] = make_int2((int)i, __float_as_int(w));
+      }
+    }
   }
 }
 
-// dW = the chunks' partials, summed in chunk order
+// dx: a group of GS lanes per destination pixel, a lane 8 channels of G's
+// row (16-byte loads) per channel pass.  A list of up to kList entries is
+// put in key order in shared memory (each entry's rank = the keys below
+// it) and summed four loads at a time; a longer one is walked by selecting
+// the next key from device memory each step (slow; not seen at the
+// flagship's sites).
+constexpr int kDxThreads = 128;
+constexpr int kList = 128;
+
+template <typename T, typename OT, int GS>
+__global__ void __launch_bounds__(kDxThreads)
+dcn_bwd_dx(const T* __restrict__ gcol, const int* __restrict__ rowptr,
+           const int2* __restrict__ ent, OT* __restrict__ dx, int npix,
+           int Cin, int cg) {
+  constexpr int NG = kDxThreads / GS;
+  __shared__ int keys[NG][kList + 1];     // +1: groups on different banks
+  __shared__ int2 sorted[NG][kList + 1];
+  const int gi = threadIdx.x / GS, gl = threadIdx.x % GS;
+  const int lane = threadIdx.x & 31;
+  const unsigned gmask = (unsigned)((1ull << GS) - 1) << (lane & ~(GS - 1));
+  const int d = blockIdx.x * NG + gi;
+  int s = 0, n = 0;
+  if (d < npix) {
+    s = rowptr[d];
+    n = rowptr[d + 1] - s;
+  }
+  const int2* e = ent + s;
+  const int npass = cdiv(cg, GS * 8);
+  const bool vec = (Cin & 7) == 0;
+  auto put = [&](int c, const float (&acc)[8]) {
+    if (d >= npix || c >= Cin) return;
+    OT* o = dx + (long long)d * Cin + c;
+    if (vec) {
+      store8(o, acc);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (c + j < Cin) o[j] = from_f<OT>(acc[j]);
+    }
+  };
+  if (n <= kList) {
+    for (int i = gl; i < n; i += GS) keys[gi][i] = e[i].x;
+    __syncwarp(gmask);
+    for (int i = gl; i < n; i += GS) {
+      const int2 v = e[i];
+      int r = 0;
+      for (int j = 0; j < n; ++j) r += keys[gi][j] < v.x;
+      sorted[gi][r] = v;
+    }
+    __syncwarp(gmask);
+    const int2* l = sorted[gi];
+    for (int ps = 0; ps < npass; ++ps) {
+      const int c = (ps * GS + gl) * 8;
+      // G's row `key` at channels c.. (zeros past the row's end)
+      auto load_row = [&](int key, float (&g)[8]) {
+        if (c < cg) {
+          load8_aligned(gcol + (long long)key * cg + c, g);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) g[j] = 0.f;
+        }
+      };
+      float acc[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+      int i = 0;
+      for (; i + 4 <= n; i += 4) {
+        float g[4][8];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) load_row(l[i + u].x, g[u]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float w = __int_as_float(l[i + u].y);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[j] = fmaf(w, g[u][j], acc[j]);
+        }
+      }
+      for (; i < n; ++i) {
+        float g[8];
+        load_row(l[i].x, g);
+        const float w = __int_as_float(l[i].y);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[j] = fmaf(w, g[j], acc[j]);
+      }
+      put(c, acc);
+    }
+  } else {
+    for (int ps = 0; ps < npass; ++ps) {
+      const int c = (ps * GS + gl) * 8;
+      float acc[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+      int prev = -1;
+      for (int i = 0; i < n; ++i) {
+        unsigned long long best = ~0ull;  // (key, weight) of the next key
+        for (int j = gl; j < n; j += GS) {
+          const int2 v = e[j];
+          const unsigned long long kv =
+              ((unsigned long long)(unsigned)v.x << 32) | (unsigned)v.y;
+          if (v.x > prev && kv < best) best = kv;
+        }
+#pragma unroll
+        for (int o = GS / 2; o > 0; o >>= 1) {
+          const unsigned long long u = __shfl_xor_sync(gmask, best, o);
+          best = u < best ? u : best;
+        }
+        prev = (int)(best >> 32);
+        if (c < cg) {
+          float g[8];
+          load8_aligned(gcol + (long long)prev * cg + c, g);
+          const float w = __int_as_float((int)(unsigned)best);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[j] = fmaf(w, g[j], acc[j]);
+        }
+      }
+      put(c, acc);
+    }
+  }
+}
+
+// dW and dbias = the chunks' partials [chunk][9 * Cin * Cout + Cout],
+// summed in chunk order
 __global__ void dcn_bwd_sum_chunks(const float* __restrict__ part,
-                           float* __restrict__ dw, long long n, int nchunks) {
+                                   float* __restrict__ dw,
+                                   float* __restrict__ dbias, long long nw,
+                                   int Cout, int nchunks) {
+  const long long n = nw + Cout;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int ch = 0; ch < nchunks; ++ch) s += part[ch * n + i];
-    dw[i] = s;
+    if (i < nw)
+      dw[i] = s;
+    else
+      dbias[i - nw] = s;
   }
 }
 
@@ -985,59 +1069,55 @@ __global__ void dcn_bwd_sum_slices(const float* __restrict__ part,
 // Host: the launch plan (from the shapes alone) and the launches.
 // ---------------------------------------------------------------------------
 
-constexpr int kGradBlocks = 2 * kSMs;  // pass A: one wave, two per SM
+__host__ __device__ constexpr long long align256(long long v) {
+  return (v + 255) / 256 * 256;
+}
 
 struct Plan {
-  int kp, nt, nslices, nchunks, tr, two, wslots, smem_a, smem_b;
-  long long ws_dw, ws_om;  // floats of dW and doffset/dmask partials
+  int kp, nt, nslices, nchunks, two, smem_a, cg, gs, nscan;
+  // the workspace, in bytes from its base: chunk partials of dW and dbias,
+  // slice partials of doffset and dmask (floats), G, corner counts, row
+  // pointers, scan block sums, corner lists; its size
+  long long o_om, o_g, o_cnt, o_rp, o_bs, o_ent, bytes;
+  long long cstride;  // floats of one chunk's partial (0: one chunk)
 };
 
-// 0, or cudaErrorInvalidValue where the shape does not fit shared memory
+// 0, or cudaErrorInvalidValue where the shape does not fit
 int make_plan(int elem, int oelem, int B, int H, int W, int Cin, int Cout,
-              float max_dy, Plan* pl) {
+              Plan* pl) {
   if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 ||
-      (long long)B * H * W >= (1LL << 31))
+      9LL * B * H * W >= (1LL << 31) / 4)  // keys and list slots in int
     return (int)cudaErrorInvalidValue;
   const long long npix = (long long)B * H * W;
   const int tiles = cdiv(npix, kTile);
   pl->kp = round_up(Cout, 16);
   pl->nt = cdiv(Cout, 64);
   if (pl->nt > 4) return (int)cudaErrorInvalidValue;
-  // pass A: pixel chunks so that the grid fills one wave of two blocks per
-  // SM (more would start a second, nearly empty wave)
+  // pass A: pixel chunks so that the grid fills one wave of blocks (more
+  // would start a second, nearly empty wave)
   pl->nslices = cdiv(Cin, kCA);
-  const int n = kGradBlocks / (9 * pl->nslices);
+  const int n = kGradPerSM * kSMs / (9 * pl->nslices);
   pl->nchunks = n < 1 ? 1 : (n > tiles ? tiles : n);
   // two input sets (the next tile loads during this one) where they fit
   pl->two = LayoutA(pl->kp, elem, oelem, true).bytes <= kSmemMax;
   pl->smem_a = LayoutA(pl->kp, elem, oelem, pl->two != 0).bytes;
-  pl->ws_dw = pl->nchunks > 1 ? (long long)pl->nchunks * 9 * Cin * Cout : 0;
-  pl->ws_om = pl->nslices > 1 ? (long long)pl->nslices * npix * 27 : 0;
-  // pass B: as many rows as the accumulator holds in one block per SM;
-  // fewer rows where the grid would not cover the SMs
-  pl->wslots = kWRing;
-  if (LayoutB(pl->kp, elem, oelem, kWRing, W).bytes > kSmemMax) pl->wslots = 2;
-  const int fixed = LayoutB(pl->kp, elem, oelem, pl->wslots, 0).bytes;
-  const int cells = (kSmemMax - fixed) / (kCB * 4);
-  const int cap = cells / W < H ? cells / W : H;
-  if (cap < 1) return (int)cudaErrorInvalidValue;
-  // rows per block: the fewest waves of blocks times the source tiles each
-  // walks (its rows and the band around them)
-  const int cslices = cdiv(Cin, kCB);
-  const int reach = 2 * (int)ceilf(max_dy < 0.f ? (float)H : max_dy) + 3;
-  long long best = -1;
-  for (int tr = cap; tr >= 1; --tr) {
-    const long long waves = cdiv((long long)cdiv(H, tr) * B * cslices, kSMs);
-    const int band = tr + reach < H ? tr + reach : H;
-    const long long cost = waves * cdiv((long long)band * W, kTile);
-    if (best < 0 || cost < best) {
-      best = cost;
-      pl->tr = tr;
-    }
-  }
-  pl->smem_b = LayoutB(pl->kp, elem, oelem, pl->wslots, pl->tr * W).bytes;
-  if (pl->smem_a > kSmemMax || pl->smem_b > kSmemMax)
-    return (int)cudaErrorInvalidValue;
+  if (pl->smem_a > kSmemMax) return (int)cudaErrorInvalidValue;
+  // dx: G's rows padded to 8 channels; lanes per destination: one per 8
+  // channels, 8 to 32
+  pl->cg = round_up(Cin, 8);
+  pl->gs = 8;
+  while (pl->gs < 32 && pl->gs * 8 < pl->cg) pl->gs *= 2;
+  pl->nscan = cdiv(npix + 1, kScan);
+  pl->cstride = pl->nchunks > 1 ? 9LL * Cin * Cout + Cout : 0;
+  const long long part = pl->nchunks * pl->cstride;
+  const long long om = pl->nslices > 1 ? pl->nslices * npix * 27 : 0;
+  pl->o_om = align256(4 * part);
+  pl->o_g = align256(pl->o_om + 4 * om);
+  pl->o_cnt = align256(pl->o_g + npix * 9 * pl->cg * elem);
+  pl->o_rp = align256(pl->o_cnt + 4 * npix);
+  pl->o_bs = align256(pl->o_rp + 4 * (npix + 1));
+  pl->o_ent = align256(pl->o_bs + 4LL * pl->nscan);
+  pl->bytes = pl->o_ent + 8 * 36 * npix;  // at most four corners per item
   return 0;
 }
 
@@ -1049,82 +1129,123 @@ cudaError_t set_smem(K kernel, int bytes) {
 
 template <typename T, typename TO, int NT>
 cudaError_t launch_grads(const T* x, const TO* off, const TO* msk,
-                         const T* w, const T* ct,
-                         float* doff, float* dmask, float* ompart,
-                         float* dwout, int B, int H, int W, int Cin,
-                         int Cout, float max_dy, float edge, const Plan& pl,
+                         const T* w, const T* ct, float* doff, float* dmask,
+                         float* ompart, float* dwout, float* dbout, T* gcol,
+                         int* cnt, int B, int H, int W, int Cin, int Cout,
+                         float max_dy, float edge, const Plan& pl,
                          cudaStream_t st) {
   auto ka = dcn_bwd_grads<T, TO, NT>;
   cudaError_t err = set_smem(ka, pl.smem_a);
   if (err != cudaSuccess) return err;
   ka<<<dim3(pl.nchunks, 9, pl.nslices), kThreads, pl.smem_a, st>>>(
-      x, off, msk, w, ct, doff, dmask, ompart, dwout, B, H, W, Cin, Cout,
-      max_dy, edge, pl.nchunks, pl.two);
+      x, off, msk, w, ct, doff, dmask, ompart, dwout, dbout, pl.cstride,
+      gcol, pl.cg, cnt, B, H, W, Cin, Cout, max_dy, edge, pl.nchunks,
+      pl.two);
   return cudaGetLastError();
+}
+
+// dx in f32, or in x's type (dx_in_t)
+template <typename T, int GS>
+cudaError_t launch_dx(const T* gcol, const int* rp, const int2* ent,
+                      void* dx, bool dx_in_t, int npix, int Cin, int cg,
+                      cudaStream_t st) {
+  constexpr int per = kDxThreads / GS;
+  if (dx_in_t)
+    dcn_bwd_dx<T, T, GS><<<cdiv(npix, per), kDxThreads, 0, st>>>(
+        gcol, rp, ent, static_cast<T*>(dx), npix, Cin, cg);
+  else
+    dcn_bwd_dx<T, float, GS><<<cdiv(npix, per), kDxThreads, 0, st>>>(
+        gcol, rp, ent, static_cast<float*>(dx), npix, Cin, cg);
+  return cudaGetLastError();
+}
+
+int grid_of(long long items, int threads) {
+  const long long b = (items + threads - 1) / threads;
+  return (int)(b < 4096 ? (b < 1 ? 1 : b) : 4096);
 }
 
 template <typename T, typename TO>
 int launch_backward(const void* xv, const void* offv, const void* mskv,
-                    const void* wv,
-                    const void* ctv, float* dx, float* doff, float* dmask,
-                    float* dw, float* ws, int B, int H, int W, int Cin,
-                    int Cout, float max_dy, float edge, cudaStream_t st) {
+                    const void* wv, const void* ctv, void* dx, bool dx_in_t,
+                    float* doff, float* dmask, float* dw, float* dbias,
+                    void* wsv, int B,
+                    int H, int W, int Cin, int Cout, float max_dy,
+                    float edge, cudaStream_t st) {
   Plan pl;
   int rc = make_plan((int)sizeof(T), (int)sizeof(TO), B, H, W, Cin, Cout,
-                     max_dy, &pl);
+                     &pl);
   if (rc) return rc;
-  if (pl.ws_dw + pl.ws_om > 0 && ws == nullptr)
-    return (int)cudaErrorInvalidValue;
+  if (wsv == nullptr) return (int)cudaErrorInvalidValue;
   const T* x = static_cast<const T*>(xv);
   const TO* off = static_cast<const TO*>(offv);
   const TO* msk = static_cast<const TO*>(mskv);
   const T* w = static_cast<const T*>(wv);
   const T* ct = static_cast<const T*>(ctv);
+  unsigned char* ws = static_cast<unsigned char*>(wsv);
   const long long npix = (long long)B * H * W;
-  float* dwout = pl.ws_dw ? ws : dw;
-  float* ompart = pl.ws_om ? ws + pl.ws_dw : nullptr;
-  cudaError_t err;
+  float* part = reinterpret_cast<float*>(ws);
+  float* dwout = pl.cstride ? part : dw;
+  float* dbout = pl.cstride ? part + 9LL * Cin * Cout : dbias;
+  float* ompart =
+      pl.nslices > 1 ? reinterpret_cast<float*>(ws + pl.o_om) : nullptr;
+  T* gcol = reinterpret_cast<T*>(ws + pl.o_g);
+  int* cnt = reinterpret_cast<int*>(ws + pl.o_cnt);
+  int* rp = reinterpret_cast<int*>(ws + pl.o_rp);
+  int* bs = reinterpret_cast<int*>(ws + pl.o_bs);
+  int2* ent = reinterpret_cast<int2*>(ws + pl.o_ent);
+  // pass A counts the corners that land on each pixel
+  cudaError_t err = cudaMemsetAsync(cnt, 0, 4 * npix, st);
+  if (err != cudaSuccess) return (int)err;
 
   switch (pl.nt) {
-    case 1:
-      err = launch_grads<T, TO, 1>(x, off, msk, w, ct, doff, dmask, ompart,
-                                   dwout, B, H, W, Cin, Cout, max_dy, edge,
-                                   pl, st);
-      break;
-    case 2:
-      err = launch_grads<T, TO, 2>(x, off, msk, w, ct, doff, dmask, ompart,
-                                   dwout, B, H, W, Cin, Cout, max_dy, edge,
-                                   pl, st);
-      break;
-    case 3:
-      err = launch_grads<T, TO, 3>(x, off, msk, w, ct, doff, dmask, ompart,
-                                   dwout, B, H, W, Cin, Cout, max_dy, edge,
-                                   pl, st);
-      break;
+#define CP_GRADS(N)                                                         \
+  case N:                                                                   \
+    err = launch_grads<T, TO, N>(x, off, msk, w, ct, doff, dmask, ompart,   \
+                                 dwout, dbout, gcol, cnt, B, H, W, Cin,     \
+                                 Cout, max_dy, edge, pl, st);               \
+    break;
+    CP_GRADS(1)
+    CP_GRADS(2)
+    CP_GRADS(3)
+    CP_GRADS(4)
+#undef CP_GRADS
     default:
-      err = launch_grads<T, TO, 4>(x, off, msk, w, ct, doff, dmask, ompart,
-                                   dwout, B, H, W, Cin, Cout, max_dy, edge,
-                                   pl, st);
+      err = cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
 
-  auto kb = dcn_bwd_dx<T, TO>;
-  if ((err = set_smem(kb, pl.smem_b)) != cudaSuccess) return (int)err;
-  kb<<<dim3(cdiv(H, pl.tr), B, cdiv(Cin, kCB)), kDxThreads, pl.smem_b,
-       st>>>(
-      off, msk, w, ct, dx, B, H, W, Cin, Cout, max_dy, pl.tr, pl.wslots);
+  const int gi = grid_of(npix * 9, 256);
+  dcn_bwd_scan_sums<<<pl.nscan, kScan, 0, st>>>(cnt, bs, npix);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  dcn_bwd_scan<<<pl.nscan, kScan, 0, st>>>(cnt, bs, rp, npix);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  dcn_bwd_fill<TO><<<gi, 256, 0, st>>>(off, msk, rp, cnt, ent, B, H, W,
+                                       max_dy);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  switch (pl.gs) {
+    case 8:
+      err = launch_dx<T, 8>(gcol, rp, ent, dx, dx_in_t, (int)npix, Cin,
+                            pl.cg, st);
+      break;
+    case 16:
+      err = launch_dx<T, 16>(gcol, rp, ent, dx, dx_in_t, (int)npix, Cin,
+                             pl.cg, st);
+      break;
+    default:
+      err = launch_dx<T, 32>(gcol, rp, ent, dx, dx_in_t, (int)npix, Cin,
+                             pl.cg, st);
+  }
+  if (err != cudaSuccess) return (int)err;
 
-  if (pl.ws_dw) {
-    const long long n = 9LL * Cin * Cout;
-    const int blocks = cdiv(n, 256) < 1024 ? cdiv(n, 256) : 1024;
-    dcn_bwd_sum_chunks<<<blocks, 256, 0, st>>>(ws, dw, n, pl.nchunks);
+  if (pl.cstride) {
+    const long long nw = 9LL * Cin * Cout;
+    dcn_bwd_sum_chunks<<<grid_of(nw + Cout, 256), 256, 0, st>>>(
+        part, dw, dbias, nw, Cout, pl.nchunks);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  if (pl.ws_om) {
-    const int blocks = cdiv(npix * 9, 256) < 1024 ? cdiv(npix * 9, 256) : 1024;
-    dcn_bwd_sum_slices<<<blocks, 256, 0, st>>>(ompart, doff, dmask, npix,
-                                       pl.nslices);
+  if (ompart) {
+    dcn_bwd_sum_slices<<<grid_of(npix * 9, 256), 256, 0, st>>>(
+        ompart, doff, dmask, npix, pl.nslices);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return 0;
@@ -1134,49 +1255,50 @@ int launch_backward(const void* xv, const void* offv, const void* mskv,
 
 // The launch plan of a backward call: out[0] = the largest dynamic shared
 // memory of its blocks in bytes (the caller checks it against the card's
-// limit), out[1] = floats of the workspace the caller allocates (0:
-// none).  dtype, off_dtype as below.  Returns 0, or cudaErrorInvalidValue
-// for a shape that does not fit.
+// limit), out[1] = bytes of the workspace the caller allocates.  dtype,
+// off_dtype as below.  Returns 0, or cudaErrorInvalidValue for a shape
+// that does not fit.
 extern "C" int cp_dcn_v2_backward_plan(int dtype, int off_dtype, int B,
                                        int H, int W, int Cin, int Cout,
-                                       float max_dy, long long* out) {
+                                       long long* out) {
   Plan pl;
   const int rc = make_plan(dtype == 1 ? 2 : 4, off_dtype == 1 ? 2 : 4, B, H,
-                           W, Cin, Cout, max_dy, &pl);
+                           W, Cin, Cout, &pl);
   if (rc) return rc;
-  out[0] = pl.smem_a > pl.smem_b ? pl.smem_a : pl.smem_b;
-  out[1] = pl.ws_dw + pl.ws_om;
+  out[0] = pl.smem_a;
+  out[1] = pl.bytes;
   return 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w, ct); off_dtype: the same codes
-// for offset [P, 18] and mask [P, 9] (bf16 offsets need bf16 x).  Outputs
-// f32, written in full: dx [P, Cin], doffset [P, 18], dmask [P, 9], dw
-// [9*Cin, Cout]; ws: the workspace the plan asks for (may be null when it
-// asks for none).  max_dy < 0: unclamped; edge: the clamp's gradient at
-// exactly |dy| = max_dy.  Returns 0 or the CUDA error of the first launch
-// that failed.
+// for offset [P, 18] and mask [P, 9] (bf16 offsets need bf16 x).  Outputs,
+// written in full: dx [P, Cin] in f32, or in x's type where dx_in_x_type
+// is nonzero; doffset [P, 18], dmask [P, 9], dw [9*Cin, Cout] and dbias
+// [Cout] in f32.  ws: the workspace the plan asks for.  max_dy < 0:
+// unclamped; edge: the clamp's gradient at exactly |dy| = max_dy.  Returns
+// 0 or the CUDA error of the first launch that failed.
 extern "C" int cp_dcn_v2_backward(int dtype, int off_dtype, const void* x,
                                   const void* off, const void* msk,
                                   const void* w, const void* ct, void* dx,
-                                  void* doff, void* dmask, void* dw, void* ws,
-                                  int B, int H, int W, int Cin, int Cout,
+                                  int dx_in_x_type, void* doff, void* dmask,
+                                  void* dw, void* dbias, void* ws, int B,
+                                  int H, int W, int Cin, int Cout,
                                   float max_dy, float edge, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* f[5] = {static_cast<float*>(dx), static_cast<float*>(doff),
-                 static_cast<float*>(dmask), static_cast<float*>(dw),
-                 static_cast<float*>(ws)};
+  const bool dt = dx_in_x_type != 0;
+  float* f[4] = {static_cast<float*>(doff), static_cast<float*>(dmask),
+                 static_cast<float*>(dw), static_cast<float*>(dbias)};
   if (dtype == 0 && off_dtype == 0)
-    return launch_backward<float, float>(x, off, msk, w, ct, f[0], f[1],
-                                         f[2], f[3], f[4], B, H, W, Cin,
+    return launch_backward<float, float>(x, off, msk, w, ct, dx, dt, f[0],
+                                         f[1], f[2], f[3], ws, B, H, W, Cin,
                                          Cout, max_dy, edge, s);
   if (dtype == 1 && off_dtype == 0)
     return launch_backward<__nv_bfloat16, float>(
-        x, off, msk, w, ct, f[0], f[1], f[2], f[3], f[4], B, H, W, Cin, Cout,
-        max_dy, edge, s);
+        x, off, msk, w, ct, dx, dt, f[0], f[1], f[2], f[3], ws, B, H, W, Cin,
+        Cout, max_dy, edge, s);
   if (dtype == 1 && off_dtype == 1)
     return launch_backward<__nv_bfloat16, __nv_bfloat16>(
-        x, off, msk, w, ct, f[0], f[1], f[2], f[3], f[4], B, H, W, Cin, Cout,
-        max_dy, edge, s);
+        x, off, msk, w, ct, dx, dt, f[0], f[1], f[2], f[3], ws, B, H, W, Cin,
+        Cout, max_dy, edge, s);
   return (int)cudaErrorInvalidValue;
 }

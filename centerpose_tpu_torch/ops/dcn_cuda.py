@@ -437,8 +437,9 @@ def _library(name: str) -> ctypes.CDLL:
                 [i32] + [ptr] * 6 + [i32] * 5 + [f32, ptr])
             bwd = ctypes.CDLL(str(paths["bwd"]))
             bwd.cp_dcn_v2_backward.argtypes = (
-                [i32, i32] + [ptr] * 10 + [i32] * 5 + [f32, f32, ptr])
-            bwd.cp_dcn_v2_backward_plan.argtypes = [i32] * 7 + [f32, ptr]
+                [i32, i32] + [ptr] * 6 + [i32] + [ptr] * 5 + [i32] * 5
+                + [f32, f32, ptr])
+            bwd.cp_dcn_v2_backward_plan.argtypes = [i32] * 7 + [ptr]
             for fn in (fwd.cp_dcn_v2_fused_forward, fwd.cp_dcn_v2_forward,
                        bwd.cp_dcn_v2_backward, bwd.cp_dcn_v2_backward_plan):
                 fn.restype = i32
@@ -546,29 +547,30 @@ def launch_forward(x, offset, mask, weight, bias, max_dy):
     return y
 
 
+@functools.lru_cache(maxsize=None)
 def backward_plan(dtype: torch.dtype, off_dtype: torch.dtype, b: int, h: int,
-                  w: int, cin: int, cout: int,
-                  max_dy: Optional[float]) -> dict:
+                  w: int, cin: int, cout: int) -> dict:
     """The backward kernel's launch plan for a shape: its largest block's
-    shared memory (bytes) and its workspace (floats: the partial sums that
-    are reduced in a fixed order)."""
+    shared memory and its workspace (bytes: dcols for the dx pass, the
+    corner lists, and the partial sums that are reduced in a fixed
+    order)."""
     out = (ctypes.c_longlong * 2)()
     rc = _library("bwd").cp_dcn_v2_backward_plan(
-        _DTYPE_CODE[dtype], _DTYPE_CODE[off_dtype], b, h, w, cin, cout,
-        _radius(max_dy), out)
+        _DTYPE_CODE[dtype], _DTYPE_CODE[off_dtype], b, h, w, cin, cout, out)
     if rc != 0:
         raise ValueError(f"dcn_v2_backward: no plan for x [{b},{h},{w},{cin}]"
                          f" {dtype}, Cout {cout} (CUDA error {rc})")
     return dict(smem=out[0], workspace=out[1])
 
 
-def launch_backward(x, offset, mask, weight, ct, max_dy, edge_grad):
+def launch_backward(x, offset, mask, weight, ct, max_dy, edge_grad,
+                    dx_in_x_dtype=False):
     """One backward call (the function of K3, K4 and K5): x and weight in
     one dtype, offset [B,H,W,18] and mask [B,H,W,9] (sigmoid-ed) float32 or
-    x's dtype, cotangent ct [B,H,W,Cout] -> f32 (dx, doffset, dmask, dW,
-    dbias).  ``edge_grad``: the clamp's gradient at exactly |dy| = max_dy.
-    Every sum runs in an order fixed by the shapes: two calls on the same
-    inputs give the same bits."""
+    x's dtype, cotangent ct [B,H,W,Cout] -> (dx, doffset, dmask, dW, dbias)
+    in f32, dx in x's dtype where ``dx_in_x_dtype``.  ``edge_grad``: the
+    clamp's gradient at exactly |dy| = max_dy.  Every sum runs in a fixed
+    order: two calls on the same inputs give the same bits."""
     _check_x("dcn_v2_backward", x)
     b, h, w, cin = x.shape
     cout = weight.shape[-1]
@@ -582,27 +584,27 @@ def launch_backward(x, offset, mask, weight, ct, max_dy, edge_grad):
     _check("weight", weight, (3, 3, cin, cout), dt, dev)
     _check("ct", ct, (b, h, w, cout), dt, dev)
     lib = _library("bwd")
-    plan = backward_plan(dt, odt, b, h, w, cin, cout, max_dy)
+    plan = backward_plan(dt, odt, b, h, w, cin, cout)
     if plan["smem"] > _SMEM_LIMIT:
         raise ValueError(f"dcn_v2_backward: Cout {cout} needs {plan['smem']} "
                          f"bytes of shared memory (at most {_SMEM_LIMIT})")
     f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.empty((b, h, w, cin), **f32)
+    dx = torch.empty((b, h, w, cin), dtype=dt if dx_in_x_dtype else
+                     torch.float32, device=dev)
     doff = torch.empty((b, h, w, 18), **f32)
     dmask = torch.empty((b, h, w, 9), **f32)
     dw = torch.empty((3, 3, cin, cout), **f32)
-    ws = torch.empty((plan["workspace"],), **f32)
+    dbias = torch.empty((cout,), **f32)
+    ws = torch.empty((plan["workspace"],), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         rc = lib.cp_dcn_v2_backward(
             _DTYPE_CODE[dt], _DTYPE_CODE[odt], x.data_ptr(),
             offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
-            ct.data_ptr(), dx.data_ptr(), doff.data_ptr(), dmask.data_ptr(),
-            dw.data_ptr(), ws.data_ptr() if ws.numel() else None, b, h, w,
-            cin, cout, _radius(max_dy), float(edge_grad), _stream(dev))
-        _raise_on(rc, "dcn_v2_backward", x, cout)
-        # dbias in one fixed-order reduction, as the reference sums it in
-        # XLA outside its kernels
-        dbias = ct.sum((0, 1, 2), dtype=torch.float32)
+            ct.data_ptr(), dx.data_ptr(), int(dx_in_x_dtype),
+            doff.data_ptr(), dmask.data_ptr(),
+            dw.data_ptr(), dbias.data_ptr(), ws.data_ptr(), b, h, w, cin,
+            cout, _radius(max_dy), float(edge_grad), _stream(dev))
+    _raise_on(rc, "dcn_v2_backward", x, cout)
     dcn_v2_backward.launches += 1
     dcn_v2_backward.launches_by_site[_site(x, cout)] += 1
     return dx, doff, dmask, dw, dbias
@@ -622,8 +624,8 @@ def dcn_v2_backward(x, offset, mask, weight, ct, max_dy, edge_grad=1.0):
                                      edge_grad)
     ct = ct.to(x.dtype).contiguous()
     dx, doff, dmask, dw, dbias = launch_backward(x, offset, mask, weight, ct,
-                                                 max_dy, edge_grad)
-    return (dx.to(x.dtype), doff.to(offset.dtype), dmask.to(mask.dtype),
+                                                 max_dy, edge_grad, True)
+    return (dx, doff.to(offset.dtype), dmask.to(mask.dtype),
             dw.to(weight.dtype), dbias)
 
 

@@ -205,3 +205,29 @@ def test_backward_edge_gradient_matches_plain(cuda, edge, dtype):
         on[..., 0::2] = off[..., 0::2].float().abs() == r
         assert torch.equal(got[1].float()[on], edge * full[1].float()[on])
         assert torch.equal(got[1][~on], full[1][~on])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_long_corner_lists_match_plain(cuda, dtype):
+    """Every tap of every pixel samples one point, so the four pixels
+    around it receive 9 P corners each: lists longer than the dx pass
+    sorts in shared memory take its slow path, with the same result."""
+    from centerpose_tpu_torch.ops.dcn import dcn_v2_backward_plain
+
+    b, h, w = 2, 8, 8
+    x, off, mask, wgt, _, ct = _train_args(11, b, h, w, 24, 16, dtype, cuda,
+                                           None)
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    target = torch.zeros(b, h, w, 18)
+    for k in range(9):
+        target[..., 2 * k] = 3.25 - yy - (k // 3 - 1)
+        target[..., 2 * k + 1] = 4.5 - xx - (k % 3 - 1)
+    off = target.to(cuda, off.dtype).contiguous()
+    got = dc.dcn_v2_backward(x, off, mask, wgt, ct, None)
+    again = dc.dcn_v2_backward(x, off, mask, wgt, ct, None)
+    want = dcn_v2_backward_plain(x, off, mask, wgt, ct, None)
+    torch.cuda.synchronize()
+    for name, a, a2, b2 in zip(("dx", "doff", "dmask", "dW", "dbias"), got,
+                               again, want):
+        assert torch.equal(a, a2), name
+        assert _rel(a, b2) <= _TOL_BWD[dtype], name
