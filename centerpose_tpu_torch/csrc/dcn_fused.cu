@@ -14,61 +14,107 @@
 //   y    = bias + sum_k W_k^T . m_k . bilinear(x, p + p_k + (dy_k, dx_k))
 //
 // and K2 the last line given offset [B,H,W,18] (dy, dx per tap) and the
-// sigmoid-ed mask [B,H,W,9]: K2 is K1's second launch, the product kernel,
-// instantiated for offsets and mask in the input type instead of K1's f32
-// om scratch.  Every bilinear corner outside the image contributes zero;
-// R < 0 means "no clamp".  The TPU layouts (row grouping, lane one-hots,
-// the slab DMA) existed only to fit VMEM and the 128-lane vector unit; none
-// of them is carried over.
+// sigmoid-ed mask [B,H,W,9].  Every bilinear corner outside the image
+// contributes zero; R < 0 means "no clamp".  Each sample is summed over
+// its four corners in f32, in corner order, and rounded once to the input
+// type (the reference's im2col column; the backward's pass A rebuilds it
+// with the same expression from the same tap_geo); products accumulate in
+// f32 and the f32 bias is added before the output's rounding.  K1 also
+// writes om [B,H,W,27] in f32 (raw offsets, then the sigmoid-ed mask) for
+// its backward.  The TPU layouts (row grouping, lane one-hots, the slab
+// DMA) existed only to fit VMEM and the 128-lane vector unit; none of them
+// is carried over.
 //
-// What bounds it on an H100: at dla_34 512x512 the 16 calls of one forward
-// do 14.2 GFLOP of main product plus 4.6 GFLOP of om conv per image, and
-// move about 43 MB in bf16 (activations in and out, weights once): the
-// operations dominate, ~19 us per image at the bf16 tensor-core rate and
-// ~0.28 ms at the f32 CUDA-core rate.  The design is the simple one: two
-// launches per K1 call, one per K2 call.
-//   1. the 27-channel om conv, f32 accumulate, writes the raw offsets and
-//      the sigmoid-ed mask to an f32 scratch [B*H*W, 27]: f32 FMA for
-//      float32 (dcn_om_f32_kernel), WMMA bf16 tiles with N padded to 32 for
-//      bfloat16 (dcn_om_bf16_kernel).
-//   2. an implicit GEMM over M = B*H*W pixels, N = Cout, K = 9*Cin.  A block
-//      owns a 64-pixel x 64-channel output tile; for each tap it computes
-//      the four bilinear corners of its pixels once, then for each
-//      32-channel slice gathers the modulated samples into shared memory
-//      (the im2col column never touches device memory), loads the matching
-//      weight slice, and accumulates in f32: with FMA on the CUDA cores for
-//      float32 (dcn_gemm_f32_kernel), with WMMA bf16 tiles on the tensor
-//      cores for bfloat16 (dcn_gemm_bf16_kernel, samples rounded to bf16).
-// No pipelining (each slice is loaded, then multiplied), each tap's input
-// gathered again for every 64-channel column tile, 64x64 tiles even where a
-// site has few pixels: it sits well above its bound; wgmma with TMA-fed
-// stages is the next step.
+// What bounds it on an H100.  One batch-8 forward of dla_34 @512 does
+// 113.5 GFLOP of main product (0.115 ms at the 989 TFLOP/s bf16 rate) and
+// about a third more in the om conv; its HBM bytes are small (~41 MB, 0.012
+// ms, at 64->64 @128).  The real floor at the Cin <= 128 sites is the
+// gather: 4 corners x 9 taps x Cin x 2 bytes per pixel (~600 MB per call
+// at 64->64 @128, batch 8), scattered 128-byte rows served by L2 and L1.
+// On the card the gather's request rate, not its latency, is what the
+// kernel runs into (chip_smoke.py prints each call's gathered bytes beside
+// its time).
+//
+// bfloat16 (dcn_gemm_wgmma; the main path), one launch per K1 or K2 call:
+//   * A block owns one 64-pixel tile and all of Cout (N = Cout padded to
+//     64k, k <= 4): each sample is gathered once, whatever Cout is.  The
+//     product runs as 64-column sub-tiles of wgmma m64n64k16 (the
+//     instruction the backward already uses) on one A stage.
+//   * Warp specialisation.  Warpgroup 1 produces: per (tap, 64-channel
+//     chunk) it computes the tile's corner table once per tap (indices and
+//     weights in shared memory), gathers the four corner rows of each pixel
+//     with 16-byte loads (8 lanes read one pixel's 128-byte row: one L2
+//     request per row; 16 loads in flight a lane), weights and sums them in
+//     f32, rounds to bf16 and stores the samples in wgmma's packed K-major
+//     layout; the weight chunk [64 x N] arrives in the same stage by
+//     cp.async and is read by wgmma as an MN-major B (no transpose).
+//     Warpgroup 0 consumes: wgmma on each stage as it fills, one group in
+//     flight.  A ring of 2-4 stages with full/empty mbarriers lets the
+//     gather of chunk i+1 run under the product of chunk i.  Cin % 8 != 0
+//     (or an unaligned x) takes a scalar-load variant in the same kernel.
+//   * The om conv is the same machinery: integer taps, one corner, weight
+//     1, so its A stages are plain copies (cp.async with zero fill, issued
+//     up to two items ahead), its B the omw rows [64 x 32] (27 columns
+//     padded; the rows arrive by cp.async into small slots and are packed
+//     by the producers), wgmma m64n32k16.  It is the first phase of the
+//     block: the om tile stays in shared memory as f32 for the product
+//     phase and is written once to device memory for the backward.
+//   * Sites with few tiles (fewer than fill the SMs) split the 9*Cin
+//     reduction: the `split` blocks of a tile form a thread-block cluster,
+//     each takes a contiguous range of the (tap, chunk) sequence for both
+//     the om conv and the product, and the partials are summed through
+//     distributed shared memory in rank order (every rank sums the om
+//     partials alike; rank r sums rows r*64/split .. of the output).  So
+//     a call stays one launch, there are no float atomics, and two calls on
+//     the same inputs give the same bits.  The launch plan (split, stages,
+//     shared memory) is computed from the shapes in Python
+//     (ops/dcn_cuda.forward_plan) and checked here.
+//   Choices, and why.  M = 64 with one consumer warpgroup keeps two blocks
+//   per SM where N <= 128, where most of the time goes.  The gather goes
+//   through registers with L1-cached loads: variants that copied the corner
+//   rows by cp.async into staging slots several items ahead (one block per
+//   SM, dedicated loader warps) were slower in development runs on the
+//   card (their copies bypass L1, and the staging leaves one block per
+//   SM); TMA cannot express the gather.  8 lanes per row halve the L2
+//   requests of 8 pixels per quarter-warp; the price, an 8-way bank
+//   conflict on one 16-byte store per sample group, is small beside it.
+//   The om items' fence (fence.proxy.async before each publish) also waits
+//   for the copies still in flight, which limits how far their pipeline
+//   runs ahead.
+//
+// float32 keeps the CUDA-core kernels of the first port (full f32, no
+// TF32), two launches per K1 call:
+//   1. dcn_om_f32_kernel: the 27-channel om conv with f32 FMA, writing the
+//      raw offsets and the sigmoid-ed mask to om [B*H*W, 27];
+//   2. dcn_gemm_f32_kernel: an implicit GEMM over M = pixels, N = Cout,
+//      K = 9*Cin, a block per 64 x 64 output tile, the four corners
+//      computed once per tap and the samples gathered into shared memory.
 //
 // Layouts follow the JAX op: x NHWC [B,H,W,Cin], weight [3,3,Cin,Cout]
 // (= row-major [9*Cin, Cout]), omw [3,3,Cin,27], y NHWC [B,H,W,Cout].
 // Element types: float or bf16 for x, weights and y (all one type); the
-// bias and the om scratch are always f32 (the reference adds its f32 bias
-// before the cast to the output type).  Entry points return
-// cudaGetLastError().
+// bias and om are always f32.  Entry points return cudaGetLastError() or
+// the launch's error.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <stdint.h>
+
+#include "dcn_hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-namespace wmma = nvcuda::wmma;
-
 constexpr int kOm = 27;          // offset/mask channels: 18 offsets + 9 mask
+// float32 kernels
 constexpr int kOmPix = 32;       // pixels per om block
 constexpr int kOmCk = 32;        // input channels per om slice
 constexpr int kBM = 64;          // GEMM tile: pixels
 constexpr int kBN = 64;          // GEMM tile: output channels
 constexpr int kBK = 32;          // GEMM tile: input channels per slice
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // om[p, 0:18] = offsets, om[p, 18:27] = sigmoid(mask logits), p = pixel.
 __device__ __forceinline__ float om_out(int o, float v) {
@@ -132,88 +178,6 @@ dcn_om_f32_kernel(const float* __restrict__ x, const float* __restrict__ omw,
       const int o = og + 8 * j;
       if (o < kOm) om[p * kOm + o] = om_out(o, acc[j] + omb[o]);
     }
-  }
-}
-
-// bfloat16: the om conv on the tensor cores, an implicit GEMM over
-// M = pixels, N = 27 (padded to 32), K = 9*Cin with WMMA bf16 tiles and f32
-// accumulators; f32 out.  Warp w owns rows 16*(w%4) .. +15 and columns
-// 16*(w/4) .. +15 of the 64x32 tile.
-__global__ void __launch_bounds__(kThreads)
-dcn_om_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ omw,
-                   const __nv_bfloat16* __restrict__ omb,
-                   float* __restrict__ om, int B, int H, int W, int Cin) {
-  constexpr int kN = 32, kLdA = kBK + 8, kLdB = kN + 8, kLdC = kN + 4;
-  __shared__ __align__(32) __nv_bfloat16 As[kBM][kLdA];
-  __shared__ __align__(32) __nv_bfloat16 Bs[kBK][kLdB];
-  __shared__ __align__(32) float Cs[kBM][kLdC];
-  __shared__ long long rowx[kBM];  // element offset of the tap's source pixel
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp % 4, wn = warp / 4;
-  const long long npix = (long long)B * H * W;
-  const long long m0 = (long long)blockIdx.x * kBM;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.f);
-
-  for (int k = 0; k < 9; ++k) {
-    if (tid < kBM) {
-      const long long m = m0 + tid;
-      long long idx = -1;
-      if (m < npix) {
-        const int px = (int)(m % W);
-        const long long t = m / W;
-        const int py = (int)(t % H);
-        const long long b = t / H;
-        const int sy = py + k / 3 - 1, sx = px + k % 3 - 1;
-        if (sy >= 0 && sy < H && sx >= 0 && sx < W)
-          idx = ((b * H + sy) * W + sx) * Cin;
-      }
-      rowx[tid] = idx;
-    }
-    __syncthreads();
-    for (int c0 = 0; c0 < Cin; c0 += kBK) {
-#pragma unroll
-      for (int r = 0; r < (kBM * kBK) / kThreads; ++r) {
-        const int e = tid + r * kThreads;
-        const int kk = e % kBK, mm = e / kBK;
-        const long long i = rowx[mm];
-        As[mm][kk] = (c0 + kk < Cin && i >= 0) ? x[i + c0 + kk] : zero;
-      }
-#pragma unroll
-      for (int r = 0; r < (kBK * kN) / kThreads; ++r) {
-        const int e = tid + r * kThreads;
-        const int o = e % kN, kk = e / kN;
-        Bs[kk][o] = (c0 + kk < Cin && o < kOm)
-            ? omw[((long long)k * Cin + c0 + kk) * kOm + o] : zero;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bf;
-        wmma::load_matrix_sync(a, &As[wm * 16][kk], kLdA);
-        wmma::load_matrix_sync(bf, &Bs[kk][wn * 16], kLdB);
-        wmma::mma_sync(acc, a, bf, acc);
-      }
-      __syncthreads();
-    }
-  }
-
-  wmma::store_matrix_sync(&Cs[wm * 16][wn * 16], acc, kLdC,
-                          wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < kBM * kOm; e += kThreads) {
-    const int mm = e / kOm, o = e % kOm;
-    const long long m = m0 + mm;
-    if (m < npix)
-      om[m * kOm + o] = om_out(o, Cs[mm][o] + __bfloat162float(omb[o]));
   }
 }
 
@@ -355,88 +319,584 @@ dcn_gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ off,
   }
 }
 
-// bfloat16: the samples are rounded to bf16 (as the reference's im2col
-// product takes them) and the product runs on the tensor cores through
-// WMMA 16x16x16 tiles with f32 accumulators.  Warp w owns rows
-// 16*(w%4) .. +15 and columns 32*(w/4) .. +31 of the 64x64 output tile.
-template <typename TO>
-__global__ void __launch_bounds__(kThreads)
-dcn_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                     const TO* __restrict__ off, int ld_off,
-                     const TO* __restrict__ msk, int ld_msk,
-                     const __nv_bfloat16* __restrict__ wt,
-                     const float* __restrict__ bias,
-                     __nv_bfloat16* __restrict__ y, int B, int H, int W,
-                     int Cin, int Cout, float max_dy) {
-  constexpr int kLdA = kBK + 8, kLdB = kBN + 8, kLdC = kBN + 4;
-  __shared__ __align__(32) __nv_bfloat16 As[kBM][kLdA];
-  __shared__ __align__(32) __nv_bfloat16 Bs[kBK][kLdB];
-  __shared__ __align__(32) float Cs[kBM][kLdC];
-  __shared__ long long cidx[4][kBM];
-  __shared__ float cwt[4][kBM];
+// ---------------------------------------------------------------------------
+// Beside the shared helpers: zero-filling cp.async, a 32-wide wgmma, wgmma's
+// fence, commit and wait, mbarriers.
+// ---------------------------------------------------------------------------
+
+// 16 bytes from global to shared memory, or 16 zero bytes where n == 0 (g
+// must still be a valid address); the caller commits and waits
+__device__ __forceinline__ void cp_async16_zfill(void* s, const void* g,
+                                                 int n) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a),
+               "l"(g), "r"(n)
+               : "memory");
+}
+
+// D [64 x 32] += A . B over one k16 step (accumulator layout as above,
+// v < 16); TA, TB as wgmma_tile's
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N of this warpgroup's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+// the inits visible to every thread (and to the async proxy) before use
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  uint64_t state;
+  asm volatile("mbarrier.arrive.shared::cta.b64 %0, [%1];\n"
+               : "=l"(state)
+               : "r"(smem_u32(b))
+               : "memory");
+  (void)state;
+}
+// wait until the phase of parity `parity` of b has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(b)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: one block per 64-pixel tile and all of Cout (see the note).
+// ---------------------------------------------------------------------------
+
+constexpr int kTM = 64;         // pixels per tile: the wgmma M
+constexpr int kKC = 64;         // input channels per chunk: one stage's K
+constexpr int kWThreads = 256;  // warpgroup 0 consumes, warpgroup 1 produces
+constexpr int kProd = 128;      // producer threads (warpgroup 1)
+constexpr int kOmN = 32;        // om columns: 27 padded to a wgmma N
+constexpr int kMaxSplit = 8;    // blocks of one cluster (the portable limit)
+constexpr int kOmRaw = kKC * kOm * 2;  // an om item's omw rows (bytes)
+constexpr int kOmSlots = 3;     // om items whose omw rows are in flight
+
+// Shared memory of a block, in bytes from the dynamic base (the host's plan
+// computes the same; the entry point checks the total).  A ring of
+// `stages` stages, each an A tile [64 px x 64 ch] and a B tile [64 ch x kp]
+// (packed bf16); the full and empty mbarriers; two corner tables [4][64]
+// (element offsets, then weights); the om tile [64][27] f32 (offsets and
+// sigmoid-ed mask: K1 computes it, K2 loads it); the om partial [64][32]
+// f32; three slots for om items' omw rows [64][27] bf16 as they arrive.
+// After the product a split block's f32 partial [64][kp + 4] reuses the
+// ring.
+struct FwdLayout {
+  int b_off, stage, bars, tab, om, omp, omraw, bytes;
+  __host__ __device__ FwdLayout(int kp, int stages) {
+    b_off = kTM * kKC * 2;
+    stage = b_off + kKC * kp * 2;
+    bars = stages * stage;
+    tab = bars + align128(16 * stages);
+    om = tab + 2 * 4 * kTM * (8 + 4);
+    omp = om + kTM * kOm * 4;
+    omraw = omp + kTM * kOmN * 4;
+    bytes = omraw + kOmSlots * kOmRaw;
+  }
+};
+
+// the producers' own barrier (named barrier 1, warpgroup 1)
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// p in the shared memory of cluster rank r (p itself without a cluster)
+__device__ __forceinline__ float* rank_smem(float* p, int r, int split) {
+  return split > 1 ? cg::this_cluster().map_shared_rank(p, r) : p;
+}
+
+__device__ __forceinline__ void cluster_or_block_sync(int split) {
+  if (split > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// Grid: split * tiles blocks; block b takes tile b / split and cluster rank
+// b % split, which owns the (tap, chunk) items [rank * nck / split,
+// (rank + 1) * nck / split) of the sequence j -> tap j / nslice, channels
+// (j % nslice) * 64 .. + 63.  FUSED: K1 (om computed here from x, omw,
+// omb and written to om); else K2 (offsets and mask read from off, msk).
+template <int NT, bool FUSED>
+__global__ void __launch_bounds__(kWThreads, NT <= 2 ? 2 : 1)
+dcn_gemm_wgmma(const __nv_bfloat16* __restrict__ x,
+               const __nv_bfloat16* __restrict__ omw,
+               const __nv_bfloat16* __restrict__ omb,
+               const __nv_bfloat16* __restrict__ off,
+               const __nv_bfloat16* __restrict__ msk,
+               const __nv_bfloat16* __restrict__ wt,
+               const float* __restrict__ bias, float* __restrict__ om,
+               __nv_bfloat16* __restrict__ y, int B, int H, int W, int Cin,
+               int Cout, float max_dy, int split, int stages) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kp = NT * 64;  // N: Cout padded
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float s_omb[kOm];  // K1: the om bias, once
+  const FwdLayout L(kp, stages);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + stages;
+  long long* tab_idx = reinterpret_cast<long long*>(smem + L.tab);
+  float* tab_w = reinterpret_cast<float*>(smem + L.tab + 2 * 4 * kTM * 8);
+  float* omt = reinterpret_cast<float*>(smem + L.om);
+  float* omp = reinterpret_cast<float*>(smem + L.omp);
+  auto stage_a = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + s * L.stage);
+  };
+  auto stage_b = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + s * L.stage + L.b_off);
+  };
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp % 4, wn = warp / 4;
-  const long long npix = (long long)B * H * W;
-  const long long m0 = (long long)blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  const int npix = B * H * W;
+  const int rank = blockIdx.x % split;
+  const int m0 = (blockIdx.x / split) * kTM;
+  const int nslice = cdiv(Cin, kKC);
+  const int nck = 9 * nslice;
+  const int j0 = rank * nck / split, j1 = (rank + 1) * nck / split;
+  const bool vec =
+      (Cin & 7) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool wvec =
+      (Cout & 7) == 0 && (reinterpret_cast<uintptr_t>(wt) & 15) == 0;
+  const bf16 zero = __float2bfloat16(0.f);
+  const bool producer = tid >= kWThreads - kProd;
+  const int pt = tid - (kWThreads - kProd);  // producer thread
+  const int lane = tid & 31, pw = pt >> 5;
+  // a producer lane: pixels 4 pw + pq + 16 i (i < 4) of the tile, channels
+  // 8 g .. 8 g + 7 of the chunk: 8 lanes read one pixel's corner row, all
+  // 128 bytes of the chunk (one L2 request per row)
+  const int pq = lane >> 3, g = lane & 7;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-
-  for (int k = 0; k < 9; ++k) {
-    tap_corners(k, m0, npix, off, ld_off, msk, ld_msk, H, W, Cin, max_dy,
-                cidx, cwt);
-    __syncthreads();
-    for (int c0 = 0; c0 < Cin; c0 += kBK) {
-#pragma unroll
-      for (int r = 0; r < (kBM * kBK) / kThreads; ++r) {
-        const int e = tid + r * kThreads;
-        const int kk = e % kBK, mm = e / kBK;
-        As[mm][kk] = (c0 + kk < Cin)
-            ? __float2bfloat16(gather_sample(x, cidx, cwt, mm, c0 + kk))
-            : zero;
-      }
-#pragma unroll
-      for (int r = 0; r < (kBK * kBN) / kThreads; ++r) {
-        const int e = tid + r * kThreads;
-        const int nn = e % kBN, kk = e / kBN;
-        const int c = c0 + kk, n = n0 + nn;
-        Bs[kk][nn] = (c < Cin && n < Cout)
-            ? wt[((long long)k * Cin + c) * Cout + n] : zero;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(a, &As[wm * 16][kk], kLdA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> bf;
-          wmma::load_matrix_sync(bf, &Bs[kk][wn * 32 + j * 16], kLdB);
-          wmma::mma_sync(acc[j], a, bf, acc[j]);
-        }
-      }
-      __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, kProd);
+      mbar_init(empty + s, kWThreads - kProd);
+    }
+    mbar_init_fence();
+  }
+  if constexpr (FUSED) {
+    if (tid < kOm) s_omb[tid] = to_f(omb[tid]);
+  } else {  // K2: the tile's offsets and mask, as f32
+    for (int e = tid; e < kTM * kOm; e += kWThreads) {
+      const int p = e / kOm, o = e - p * kOm, m = m0 + p;
+      float v = 0.f;
+      if (m < npix)
+        v = to_f(o < 18 ? off[(long long)m * 18 + o]
+                        : msk[(long long)m * 9 + o - 18]);
+      omt[e] = v;
     }
   }
-
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(&Cs[wm * 16][wn * 32 + j * 16], acc[j], kLdC,
-                            wmma::mem_row_major);
   __syncthreads();
-  for (int e = tid; e < kBM * kBN; e += kThreads) {
-    const int mm = e / kBN, nn = e % kBN;
-    const long long m = m0 + mm;
-    const int n = n0 + nn;
-    if (m < npix && n < Cout)
-      y[m * Cout + n] = __float2bfloat16(Cs[mm][nn] + bias[n]);
+
+  // the ring: items go through it in one order for both roles; item i
+  // uses stage i % stages in phase i / stages
+  int it = 0;        // consumer: items taken
+  int issued = 0;    // producer: stages acquired
+  int pending = -1;  // consumer: the stage of the product in flight
+  auto acquire = [&]() {  // producer: the next stage, once empty
+    const int s = issued % stages;
+    mbar_wait(empty + s, ((issued / stages) & 1) ^ 1);
+    ++issued;
+    return s;
+  };
+  auto publish = [&](int s) {  // producer: this thread's part is written
+    fence_async_smem();
+    mbar_arrive(full + s);
+  };
+  auto take = [&]() {  // consumer: the next stage, once full
+    const int s = it % stages;
+    mbar_wait(full + s, (it / stages) & 1);
+    __syncwarp();
+    return s;
+  };
+  auto retire = [&](int s) {  // consumer, after wgmma_wait<1>: the product
+    if (pending >= 0) mbar_arrive(empty + pending);  // before s is done
+    pending = s;
+    ++it;
+  };
+  auto retire_all = [&]() {  // consumer, after wgmma_wait<0>
+    if (pending >= 0) mbar_arrive(empty + pending);
+    pending = -1;
+  };
+
+  if constexpr (FUSED) {
+    // --- phase 1: the om conv, its partial over this rank's items ---------
+    if (producer) {
+      // items in flight ahead of the one published: each thread's copies
+      // of item j are waited for `depth` items later (the ring holds the
+      // item being published, those in flight and the consumer's two)
+      const int depth = min(2, stages - 2);
+      const bool ovec =
+          vec && (reinterpret_cast<uintptr_t>(omw) & 15) == 0;
+      int pb[4], py[4], px[4];
+      bool pin[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = m0 + pw * 4 + pq + 16 * i;
+        const int t = m / W;
+        pin[i] = m < npix;
+        px[i] = m - t * W;
+        py[i] = t % H;
+        pb[i] = t / H;
+      }
+      auto om_slot = [&](int j) {
+        return reinterpret_cast<bf16*>(smem + L.omraw +
+                                       ((j - j0) % kOmSlots) * kOmRaw);
+      };
+      // issue item j: A = x at the integer tap (zero outside the image and
+      // past Cin) into the item's stage, its omw rows (contiguous [rows]
+      // [27]) into an om slot, all by cp.async
+      auto om_issue = [&](int j) {
+        const int k = j / nslice, c0 = (j - k * nslice) * kKC;
+        bf16* A = stage_a(acquire());
+        const int c = c0 + 8 * g;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int p = pw * 4 + pq + 16 * i;
+          const int sy = py[i] + k / 3 - 1, sx = px[i] + k % 3 - 1;
+          const bool in =
+              pin[i] && sy >= 0 && sy < H && sx >= 0 && sx < W;
+          const long long row =
+              in ? (((long long)pb[i] * H + sy) * W + sx) * Cin : 0;
+          bf16* d = A + pack_off<bf16>(p, 8 * g, kKC);
+          if (vec) {
+            const bool ok = in && c < Cin;
+            cp_async16_zfill(d, ok ? x + row + c : x, ok ? 16 : 0);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              d[e] = (in && c + e < Cin) ? x[row + c + e] : zero;
+          }
+        }
+        const int rows = min(kKC, Cin - c0);
+        const bf16* src = omw + ((long long)k * Cin + c0) * kOm;
+        bf16* raw = om_slot(j);
+        if (ovec) {  // rows * 54 bytes: a multiple of 16 (Cin % 8 == 0)
+          for (int e = pt; e < rows * kOm / 8; e += kProd)
+            cp_async16(raw + 8 * e, src + 8 * e);
+        } else {
+          for (int e = pt; e < rows * kOm; e += kProd) raw[e] = src[e];
+        }
+        cp_async_commit();
+      };
+      // publish item j: its omw rows into the stage's B [64 x 32] (zero
+      // past Cin and in the padding columns)
+      auto om_publish = [&](int j) {
+        const int c0 = (j % nslice) * kKC;
+        const int s = (j - j0) % stages;  // the om items come first
+        if (depth >= 2)
+          cp_async_wait_group<2>();
+        else if (depth == 1)
+          cp_async_wait_group<1>();
+        else
+          cp_async_wait_group<0>();
+        producer_sync();  // every thread's rows have landed
+        const bf16* raw = om_slot(j);
+        bf16* Bt = stage_b(s);
+        for (int e = pt; e < kKC * (kOmN / 8); e += kProd) {
+          // row kk, columns n .. n + 7: one 16-byte store
+          const int kk = e / (kOmN / 8), n = (e % (kOmN / 8)) * 8;
+          const bool in = c0 + kk < Cin;
+          union {
+            uint4 u;
+            bf16 h[8];
+          } pk;
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            pk.h[i] = (in && n + i < kOm) ? raw[kk * kOm + n + i] : zero;
+          *reinterpret_cast<uint4*>(Bt + pack_off<bf16>(kk, n, kOmN)) = pk.u;
+        }
+        producer_sync();  // the slot is read before it is refilled
+        publish(s);
+      };
+      // one cp.async group per item, empty past the last: the group of
+      // item j is complete once at most `depth` newer ones are pending
+      for (int j = j0; j < j0 + depth; ++j) {
+        if (j < j1)
+          om_issue(j);
+        else
+          cp_async_commit();
+      }
+      for (int j = j0; j < j1; ++j) {
+        if (j + depth < j1)
+          om_issue(j + depth);
+        else
+          cp_async_commit();
+        om_publish(j);
+      }
+      cp_async_wait_all();
+    } else {
+      float oacc[16];
+#pragma unroll
+      for (int v = 0; v < 16; ++v) oacc[v] = 0.f;
+      for (int j = j0; j < j1; ++j) {
+        const int s = take();
+        const uint64_t a = smem_desc(stage_a(s), 128, kKC * 16);
+        const uint64_t b = smem_desc(stage_b(s), kOmN * 16, 128);
+        fence_operands(oacc);
+        wgmma_fence();
+#pragma unroll
+        for (int q = 0; q < 4; ++q)  // k16 steps: 2 core matrices along K
+          wgmma_n32<0, 1>(oacc, a + 16 * q, b + 2 * kOmN * q);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_operands(oacc);
+        retire(s);
+      }
+      wgmma_wait<0>();
+      fence_operands(oacc);
+      retire_all();
+#pragma unroll
+      for (int v = 0; v < 16; ++v)
+        omp[frag_row(v) * kOmN + frag_col(v)] = oacc[v];
+    }
+    cluster_or_block_sync(split);
+    // om = the ranks' partials summed in rank order, + omb; the mask
+    // through the sigmoid.  Every rank computes the same tile.
+    for (int e = tid; e < kTM * kOm; e += kWThreads) {
+      const int p = e / kOm, o = e - p * kOm;
+      float part[kMaxSplit];
+#pragma unroll
+      for (int r = 0; r < kMaxSplit; ++r)  // all loads in flight first
+        part[r] = r < split ? rank_smem(omp, r, split)[p * kOmN + o] : 0.f;
+      float v = 0.f;
+#pragma unroll
+      for (int r = 0; r < kMaxSplit; ++r)
+        if (r < split) v += part[r];
+      v = om_out(o, v + s_omb[o]);
+      omt[e] = v;
+      if (rank == 0 && m0 + p < npix) om[(long long)(m0 + p) * kOm + o] = v;
+    }
+    __syncthreads();
+  }
+
+  // --- phase 2: the product over this rank's items -------------------------
+  if (producer) {
+    int tap = -1, buf = 1;
+    for (int j = j0; j < j1; ++j) {
+      const int k = j / nslice, c0 = (j - k * nslice) * kKC;
+      if (k != tap) {  // the tile's corners at tap k, once per tap (two
+        tap = k;       // tables: the other may still be read)
+        buf ^= 1;
+        if (pt < kTM) {
+          const int m = m0 + pt;
+          long long* ti = tab_idx + buf * 4 * kTM;
+          float* tw = tab_w + buf * 4 * kTM;
+          if (m < npix) {
+            const float* o = omt + pt * kOm;
+            const TapGeo geo = tap_geo(m, k, o[2 * k], o[2 * k + 1],
+                                       o[18 + k], H, W, Cin, max_dy, 1.f);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              // outside: a valid row with weight 0, as the backward has it
+              const bool in = geo.idx[q] >= 0;
+              ti[q * kTM + pt] = in ? geo.idx[q] : 0;
+              tw[q * kTM + pt] = in ? geo.wq[q] * geo.mk : 0.f;
+            }
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              ti[q * kTM + pt] = 0;
+              tw[q * kTM + pt] = 0.f;
+            }
+          }
+        }
+        producer_sync();
+      }
+      const int s = acquire();
+      bf16* A = stage_a(s);
+      bf16* Bt = stage_b(s);
+      // B (kk, n) = W[k * Cin + c0 + kk, n], zero past Cin and Cout
+      const bf16* wk = wt + ((long long)k * Cin + c0) * Cout;
+      for (int e = pt; e < kKC * (kp / 8); e += kProd) {
+        const int kk = e / (kp / 8), n = (e - kk * (kp / 8)) * 8;
+        bf16* d = Bt + pack_off<bf16>(kk, n, kp);
+        const bool row_in = c0 + kk < Cin;
+        if (wvec && row_in && n < Cout) {
+          cp_async16(d, wk + (long long)kk * Cout + n);
+        } else {
+#pragma unroll
+          for (int e2 = 0; e2 < 8; ++e2)
+            d[e2] = (row_in && n + e2 < Cout)
+                        ? wk[(long long)kk * Cout + n + e2] : zero;
+        }
+      }
+      // A (p, c) = sum over the corners q, in order, of w_q . x[idx_q + c]
+      const long long* ti = tab_idx + buf * 4 * kTM;
+      const float* tw = tab_w + buf * 4 * kTM;
+      const int c = c0 + 8 * g;
+      if (vec) {
+        uint4 raw[4][4];  // [pixel][corner]
+        float wq[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int p = pw * 4 + pq + 16 * i;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const long long idx = ti[q * kTM + p];
+            wq[i][q] = tw[q * kTM + p];
+            raw[i][q] = c < Cin ? *reinterpret_cast<const uint4*>(x + idx + c)
+                                : make_uint4(0u, 0u, 0u, 0u);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float v[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = 0.f;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float xv[8];
+            unpack8(raw[i][q], xv);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[e] = fmaf(wq[i][q], xv[e], v[e]);
+          }
+          store_packed8<bf16>(A, pw * 4 + pq + 16 * i, 8 * g, kKC, v);
+        }
+      } else {  // Cin % 8 != 0: element loads
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int p = pw * 4 + pq + 16 * i;
+          float v[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = 0.f;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const long long idx = ti[q * kTM + p];
+            const float w = tw[q * kTM + p];
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              if (c + e < Cin) v[e] = fmaf(w, to_f(x[idx + c + e]), v[e]);
+          }
+          store_packed8<bf16>(A, p, 8 * g, kKC, v);
+        }
+      }
+      cp_async_wait_all();  // this thread's part of B
+      publish(s);
+    }
+  } else {
+    float acc[NT][32];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int v = 0; v < 32; ++v) acc[t][v] = 0.f;
+    for (int j = j0; j < j1; ++j) {
+      const int s = take();
+      const uint64_t a = smem_desc(stage_a(s), 128, kKC * 16);
+      const bf16* Bt = stage_b(s);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) fence_operands(acc[t]);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        // B read as MN-major: the next 8 k kp * 16 bytes on, the next 8 n
+        // 128 bytes on; a k16 step is 2 kp in the address field
+        const uint64_t b =
+            smem_desc(Bt + pack_off<bf16>(0, t * 64, kp), kp * 16, 128);
+        wgmma_k64<0, 1>(acc[t], a, a + 16, a + 32, a + 48, b, b + 2 * kp,
+                        b + 4 * kp, b + 6 * kp);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+#pragma unroll
+      for (int t = 0; t < NT; ++t) fence_operands(acc[t]);
+      retire(s);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int t = 0; t < NT; ++t) fence_operands(acc[t]);
+    retire_all();
+    if (split == 1) {  // y = bf16(acc + bias), two columns a store
+      const bool pair = (Cout & 1) == 0;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+#pragma unroll
+        for (int v = 0; v < 32; v += 2) {
+          const int m = m0 + frag_row(v), n = t * 64 + frag_col(v);
+          if (m >= npix || n >= Cout) continue;
+          bf16* o = y + (long long)m * Cout + n;
+          const float a0 = acc[t][v] + bias[n];
+          if (pair) {
+            *reinterpret_cast<__nv_bfloat162*>(o) =
+                __floats2bfloat162_rn(a0, acc[t][v + 1] + bias[n + 1]);
+          } else {
+            o[0] = __float2bfloat16(a0);
+            if (n + 1 < Cout)
+              o[1] = __float2bfloat16(acc[t][v + 1] + bias[n + 1]);
+          }
+        }
+      }
+    } else {  // the partial into the (now idle) ring
+      float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int v = 0; v < 32; ++v)
+          part[frag_row(v) * (kp + 4) + t * 64 + frag_col(v)] = acc[t][v];
+    }
+  }
+  if (split > 1) {
+    // rank r: rows r * 64 / split .. of the tile, the partials summed in
+    // rank order, + bias
+    cg::this_cluster().sync();
+    float* part = reinterpret_cast<float*>(smem);
+    const int r0 = rank * kTM / split, r1 = (rank + 1) * kTM / split;
+    for (int e = tid; e < (r1 - r0) * Cout; e += kWThreads) {
+      const int r = r0 + e / Cout, n = e % Cout, m = m0 + r;
+      if (m >= npix) continue;
+      float v[kMaxSplit];
+#pragma unroll
+      for (int q = 0; q < kMaxSplit; ++q)  // all loads in flight first
+        v[q] = q < split ? rank_smem(part, q, split)[r * (kp + 4) + n] : 0.f;
+      float sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < kMaxSplit; ++q)
+        if (q < split) sum += v[q];
+      y[(long long)m * Cout + n] = __float2bfloat16(sum + bias[n]);
+    }
+    cg::this_cluster().sync();  // no rank leaves while others read it
   }
 }
 
@@ -444,17 +904,14 @@ unsigned blocks(long long n, int per_block) {
   return (unsigned)((n + per_block - 1) / per_block);
 }
 
+// ---------------------------------------------------------------------------
+// Host: launches.
+// ---------------------------------------------------------------------------
+
 void launch_om(const float* x, const float* omw, const float* omb,
                float* om, int B, int H, int W, int Cin, cudaStream_t stream) {
   dcn_om_f32_kernel<<<blocks((long long)B * H * W, kOmPix), kThreads, 0,
                       stream>>>(x, omw, omb, om, B, H, W, Cin);
-}
-
-void launch_om(const __nv_bfloat16* x, const __nv_bfloat16* omw,
-               const __nv_bfloat16* omb, float* om, int B, int H, int W,
-               int Cin, cudaStream_t stream) {
-  dcn_om_bf16_kernel<<<blocks((long long)B * H * W, kBM), kThreads, 0,
-                       stream>>>(x, omw, omb, om, B, H, W, Cin);
 }
 
 void launch_gemm(const float* x, const float* off, int ld_off,
@@ -466,82 +923,145 @@ void launch_gemm(const float* x, const float* off, int ld_off,
       x, off, ld_off, msk, ld_msk, w, bias, y, B, H, W, Cin, Cout, max_dy);
 }
 
-template <typename TO>
-void launch_gemm(const __nv_bfloat16* x, const TO* off, int ld_off,
-                 const TO* msk, int ld_msk, const __nv_bfloat16* w,
-                 const float* bias, __nv_bfloat16* y, int B, int H, int W,
-                 int Cin, int Cout, float max_dy, cudaStream_t stream) {
-  const dim3 grid(blocks((long long)B * H * W, kBM), blocks(Cout, kBN));
-  dcn_gemm_bf16_kernel<TO><<<grid, kThreads, 0, stream>>>(
-      x, off, ld_off, msk, ld_msk, w, bias, y, B, H, W, Cin, Cout, max_dy);
-}
-
-template <typename T>
-int launch_fused(const void* x, const void* omw, const void* omb,
-                 const void* w, const void* bias, void* om, void* y, int B,
-                 int H, int W, int Cin, int Cout, float max_dy,
-                 cudaStream_t stream) {
-  launch_om(static_cast<const T*>(x), static_cast<const T*>(omw),
-            static_cast<const T*>(omb), static_cast<float*>(om), B, H, W, Cin,
-            stream);
+// float32 K1: the om conv, then the product on its om
+int launch_fused_f32(const void* x, const void* omw, const void* omb,
+                     const void* w, const void* bias, void* om, void* y,
+                     int B, int H, int W, int Cin, int Cout, float max_dy,
+                     cudaStream_t stream) {
+  launch_om(static_cast<const float*>(x), static_cast<const float*>(omw),
+            static_cast<const float*>(omb), static_cast<float*>(om), B, H, W,
+            Cin, stream);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const float* omf = static_cast<const float*>(om);
-  launch_gemm(static_cast<const T*>(x), omf, kOm, omf + 18, kOm,
-              static_cast<const T*>(w), static_cast<const float*>(bias),
-              static_cast<T*>(y), B, H, W, Cin, Cout, max_dy, stream);
+  launch_gemm(static_cast<const float*>(x), omf, kOm, omf + 18, kOm,
+              static_cast<const float*>(w), static_cast<const float*>(bias),
+              static_cast<float*>(y), B, H, W, Cin, Cout, max_dy, stream);
   return (int)cudaGetLastError();
 }
 
-// K2: the product kernel on offsets [P, 18] and mask [P, 9] of type T.
-template <typename T>
-int launch_forward(const void* x, const void* off, const void* msk,
-                   const void* w, const void* bias, void* y, int B, int H,
-                   int W, int Cin, int Cout, float max_dy,
-                   cudaStream_t stream) {
-  launch_gemm(static_cast<const T*>(x), static_cast<const T*>(off), 18,
-              static_cast<const T*>(msk), 9, static_cast<const T*>(w),
-              static_cast<const float*>(bias), static_cast<T*>(y), B, H, W,
-              Cin, Cout, max_dy, stream);
-  return (int)cudaGetLastError();
+// 0, or cudaErrorInvalidValue where the plan (split, stages, smem: see
+// ops/dcn_cuda.forward_plan) does not fit the shape
+int check_plan(int B, int H, int W, int Cin, int Cout, int split,
+               int stages, int smem) {
+  const int bad = (int)cudaErrorInvalidValue;
+  if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || Cout > 256)
+    return bad;
+  const long long npix = (long long)B * H * W;
+  if (npix >= (1LL << 31) / 8) return bad;  // pixels and grid in int
+  if (split < 1 || split > kMaxSplit || split > 9 * cdiv(Cin, kKC))
+    return bad;
+  const int kp = round_up(Cout, 64);
+  const FwdLayout L(kp, stages);
+  if (stages < 2 || stages > 8 || L.bytes != smem || smem > kSmemMax)
+    return bad;
+  if (split > 1 && L.bars < kTM * (kp + 4) * 4) return bad;
+  return 0;
+}
+
+template <int NT, bool FUSED>
+cudaError_t launch_wgmma(const void* x, const void* omw, const void* omb,
+                         const void* off, const void* msk, const void* w,
+                         const void* bias, void* om, void* y, int B, int H,
+                         int W, int Cin, int Cout, float max_dy, int split,
+                         int stages, int smem, cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  auto kern = dcn_gemm_wgmma<NT, FUSED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks((long long)B * H * W, kTM) * (unsigned)split);
+  cfg.blockDim = dim3(kWThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const bf16*>(x), static_cast<const bf16*>(omw),
+      static_cast<const bf16*>(omb), static_cast<const bf16*>(off),
+      static_cast<const bf16*>(msk), static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(om),
+      static_cast<bf16*>(y), B, H, W, Cin, Cout, max_dy, split, stages);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <bool FUSED>
+int launch_bf16(const void* x, const void* omw, const void* omb,
+                const void* off, const void* msk, const void* w,
+                const void* bias, void* om, void* y, int B, int H, int W,
+                int Cin, int Cout, float max_dy, int split, int stages,
+                int smem, cudaStream_t st) {
+  const int rc = check_plan(B, H, W, Cin, Cout, split, stages, smem);
+  if (rc) return rc;
+  switch (cdiv(Cout, 64)) {
+#define CP_NT(N)                                                             \
+  case N:                                                                    \
+    return (int)launch_wgmma<N, FUSED>(x, omw, omb, off, msk, w, bias, om,  \
+                                       y, B, H, W, Cin, Cout, max_dy, split, \
+                                       stages, smem, st);
+    CP_NT(1)
+    CP_NT(2)
+    CP_NT(3)
+    CP_NT(4)
+#undef CP_NT
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, omw, omb, w, y); bias is float32 in
-// both, added to the f32 accumulator before the output's rounding.  om: f32
-// scratch of B*H*W*27 elements.
-// max_dy < 0: unclamped.  Returns cudaGetLastError() after the launches.
+// K1.  dtype: 0 = float32, 1 = bfloat16 (x, omw, omb, w, y); bias is
+// float32, added to the f32 accumulator before the output's rounding; om:
+// f32 [B*H*W, 27], written.  max_dy < 0: unclamped.  split, stages, smem:
+// the bf16 launch plan (ops/dcn_cuda.forward_plan; unused for float32).
+// Returns 0 or the CUDA error of the first launch that failed.
 extern "C" int cp_dcn_v2_fused_forward(int dtype, const void* x,
                                        const void* omw, const void* omb,
                                        const void* w, const void* bias,
                                        void* om, void* y, int B, int H, int W,
                                        int Cin, int Cout, float max_dy,
+                                       int split, int stages, int smem,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_fused<float>(x, omw, omb, w, bias, om, y, B, H, W, Cin,
-                               Cout, max_dy, s);
+    return launch_fused_f32(x, omw, omb, w, bias, om, y, B, H, W, Cin, Cout,
+                            max_dy, s);
   if (dtype == 1)
-    return launch_fused<__nv_bfloat16>(x, omw, omb, w, bias, om, y, B, H, W,
-                                       Cin, Cout, max_dy, s);
+    return launch_bf16<true>(x, omw, omb, nullptr, nullptr, w, bias, om, y,
+                             B, H, W, Cin, Cout, max_dy, split, stages, smem,
+                             s);
   return (int)cudaErrorInvalidValue;
 }
 
 // K2.  dtype: 0 = float32, 1 = bfloat16 (x, offset, mask, w, y); bias is
 // float32.  offset [B*H*W, 18] (dy, dx per tap), mask [B*H*W, 9] already
-// sigmoid-ed.  max_dy < 0: unclamped.  Returns cudaGetLastError().
+// sigmoid-ed.  max_dy < 0: unclamped.  split, stages, smem as for K1.
+// Returns 0 or the CUDA error of the launch.
 extern "C" int cp_dcn_v2_forward(int dtype, const void* x, const void* off,
                                  const void* msk, const void* w,
                                  const void* bias, void* y, int B, int H,
                                  int W, int Cin, int Cout, float max_dy,
+                                 int split, int stages, int smem,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_forward<float>(x, off, msk, w, bias, y, B, H, W, Cin, Cout,
-                                 max_dy, s);
+  if (dtype == 0) {
+    launch_gemm(static_cast<const float*>(x), static_cast<const float*>(off),
+                18, static_cast<const float*>(msk), 9,
+                static_cast<const float*>(w), static_cast<const float*>(bias),
+                static_cast<float*>(y), B, H, W, Cin, Cout, max_dy, s);
+    return (int)cudaGetLastError();
+  }
   if (dtype == 1)
-    return launch_forward<__nv_bfloat16>(x, off, msk, w, bias, y, B, H, W,
-                                         Cin, Cout, max_dy, s);
+    return launch_bf16<false>(x, nullptr, nullptr, off, msk, w, bias,
+                              nullptr, y, B, H, W, Cin, Cout, max_dy, split,
+                              stages, smem, s);
   return (int)cudaErrorInvalidValue;
 }

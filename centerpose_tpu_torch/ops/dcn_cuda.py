@@ -18,12 +18,16 @@ Counterpart of ``centerpose_tpu/ops/dcn_pallas.py``.  Three parts:
   XLA fallback 0.5).  It is a statement about the reference, not about
   H100 limits.
 * **Kernels.**  ``csrc/dcn_fused.cu`` holds K1 (offset/mask conv +
-  clamped bilinear gather + GEMM) and K2 (its product kernel on explicit
-  offsets and mask); ``csrc/dcn_bwd.cu`` the backward of both.  Each source
-  is built with ``nvcc`` at first use into a library of its own in
-  ``centerpose_tpu_torch/build/`` (one ``nvcc`` per source, all started
-  together), keyed by a hash of the source and flags, and loaded with
-  ``ctypes``.
+  clamped bilinear gather + GEMM; in bf16 one warp-specialised wgmma
+  launch per call) and K2 (the same kernel on explicit offsets and mask);
+  ``csrc/dcn_bwd.cu`` the backward of both; ``csrc/dcn_hopper.cuh`` the
+  Hopper helpers they share.  Each source is built with ``nvcc`` at first
+  use into a library of its own in ``centerpose_tpu_torch/build/`` (one
+  ``nvcc`` per source, all started together), keyed by a hash of the
+  source, the headers it includes and the flags, and loaded with
+  ``ctypes``.  ``forward_plan`` is the bf16 forward's launch plan (tile,
+  split of the reduction, ring stages, shared memory), computed here from
+  the shapes and checked by the kernel's entry point.
 * **Autograd.**  ``dcn_v2_fused`` (K1) and ``dcn_v2`` (K2) are
   ``torch.autograd.Function``s on a CUDA tensor, with the backward kernel
   as their backward (the reference's ``_fused_fwd``/``_fused_bwd`` and
@@ -40,6 +44,7 @@ import functools
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -363,7 +368,9 @@ BUILD_DIR = _PKG / "build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-KERNELS_PER_CALL = 2  # __global__ launches of one K1 call (om conv, product)
+# __global__ launches of one K1 call: bf16 one (om conv and product in one
+# block, split sites in one cluster launch), float32 two (om conv, product)
+KERNELS_PER_CALL = {torch.bfloat16: 1, torch.float32: 2}
 _SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 
 _lib_lock = threading.Lock()
@@ -385,12 +392,32 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _local_headers(src: Path) -> list:
+    """The headers ``src`` includes with quotes, and those they include,
+    found beside the including file; each once, in first-seen order."""
+    seen, todo = [], [src]
+    while todo:
+        cur = todo.pop(0)
+        for name in _INCLUDE.findall(cur.read_text()):
+            hdr = (cur.parent / name).resolve()
+            if hdr.is_file() and hdr not in seen:
+                seen.append(hdr)
+                todo.append(hdr)
+    return seen
+
+
 def library_path(name: str) -> Path:
     """Where the library built from source ``name`` lives: the file name
-    carries a hash of the source and flags, so an edited source is
-    rebuilt."""
+    carries a hash of the flags, the source and every header it includes,
+    so an edited source or header is rebuilt."""
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     h.update(_SOURCES[name].read_bytes())
+    for hdr in _local_headers(_SOURCES[name]):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     return BUILD_DIR / f"libcp_dcn_{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -432,9 +459,9 @@ def _library(name: str) -> ctypes.CDLL:
             ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             fwd = ctypes.CDLL(str(paths["fwd"]))
             fwd.cp_dcn_v2_fused_forward.argtypes = (
-                [i32] + [ptr] * 7 + [i32] * 5 + [f32, ptr])
+                [i32] + [ptr] * 7 + [i32] * 5 + [f32] + [i32] * 3 + [ptr])
             fwd.cp_dcn_v2_forward.argtypes = (
-                [i32] + [ptr] * 6 + [i32] * 5 + [f32, ptr])
+                [i32] + [ptr] * 6 + [i32] * 5 + [f32] + [i32] * 3 + [ptr])
             bwd = ctypes.CDLL(str(paths["bwd"]))
             bwd.cp_dcn_v2_backward.argtypes = (
                 [i32, i32] + [ptr] * 6 + [i32] + [ptr] * 5 + [i32] * 5
@@ -494,6 +521,100 @@ def _bias_or_zeros(bias: Optional[torch.Tensor], cout: int,
     return bias
 
 
+# The bf16 forward kernel (dcn_gemm_wgmma in csrc/dcn_fused.cu): its tile,
+# its reduction chunks, its ring and its shared memory, mirrored here so
+# that the plan is a function of the shapes the CPU tests can reach.
+_TILE_M = 64          # pixels per block: one consumer warpgroup's wgmma M
+_CHUNK = 64           # input channels per ring stage (the stage's K)
+_OM_N = 32            # om columns: 27 padded to a wgmma N
+_SMS = 132            # SMs of an H100 SXM
+_SM_SMEM = 233472     # shared memory of one SM (228 KB)
+_BLOCK_RESERVED = 1024  # shared memory the runtime keeps per block
+_MAX_SPLIT = 8        # blocks of one cluster (the portable limit)
+_MAX_STAGES = 4
+
+
+def _align128(v: int) -> int:
+    return _roundup(v, 128)
+
+
+def fwd_smem_bytes(kp: int, stages: int) -> int:
+    """Dynamic shared memory of one bf16 forward block (``FwdLayout`` in
+    csrc/dcn_fused.cu): the ring of A [64 x 64] and B [64 x kp] bf16
+    stages, their mbarriers, two corner tables, the f32 om tile and om
+    partial, three slots of om weight rows [64][27] bf16."""
+    stage = _TILE_M * _CHUNK * 2 + _CHUNK * kp * 2
+    return (stages * stage + _align128(16 * stages) + 2 * 4 * _TILE_M * 12
+            + _TILE_M * 27 * 4 + _TILE_M * _OM_N * 4 + 3 * _CHUNK * 27 * 2)
+
+
+def _split_cost(tiles: int, chunks: int, resident: int, split: int) -> int:
+    """Chunk steps of the longest block of a plan: waves of blocks times
+    the chunks each takes, plus one for the cross-block reduction."""
+    waves = -(-tiles * split // resident)
+    return waves * -(-chunks // split) + (split > 1)
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan(dtype: torch.dtype, b: int, h: int, w: int, cin: int,
+                 cout: int) -> dict:
+    """The launch plan of one K1 or K2 call, a pure function of the shapes.
+
+    bfloat16: one block per 64-pixel tile covering all of Cout (padded to
+    ``n_pad``, a multiple of 64 up to 256); the 9*Cin reduction runs in
+    ``chunks`` steps of (tap, 64 channels), j -> tap j // ``slices``.
+    Where the tiles leave SMs idle, ``split`` blocks of one cluster share a
+    tile, rank r taking chunks ``chunk_ranges[r]`` and summing output rows
+    ``reduce_rows[r]`` in rank order (deterministic).  ``stages`` ring
+    stages: as many as fit with two blocks per SM where Cout <= 128 (the
+    registers allow two there), else one block per SM; at most four.
+    float32: the CUDA-core kernels, 64 x 64 output tiles, no split."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"dcn_v2 forward: dtype {dtype}")
+    if min(b, h, w, cin, cout) < 1:
+        raise ValueError(f"dcn_v2 forward: shape {(b, h, w, cin, cout)}")
+    npix = b * h * w
+    tiles = -(-npix // _TILE_M)
+    if dtype == torch.float32:
+        return dict(kernel="f32", launches=KERNELS_PER_CALL[dtype],
+                    tile_m=_TILE_M, tiles=tiles, col_tiles=-(-cout // 64),
+                    n_pad=_roundup(cout, 64), split=1, stages=0, smem=0,
+                    slices=-(-cin // 32), chunk=32,
+                    chunks=9 * -(-cin // 32),
+                    chunk_ranges=((0, 9 * -(-cin // 32)),),
+                    reduce_rows=((0, _TILE_M),), grid=(tiles, -(-cout // 64)))
+    if cout > 256:
+        raise ValueError(f"dcn_v2 forward: Cout {cout} > 256 (bfloat16)")
+    if npix >= (1 << 31) // 8:
+        raise ValueError(f"dcn_v2 forward: {npix} pixels")
+    nt = -(-cout // 64)
+    kp = 64 * nt
+    per_sm = 2 if nt <= 2 else 1
+    room = min(_SM_SMEM // per_sm - _BLOCK_RESERVED, _SMEM_LIMIT)
+    stage = _TILE_M * _CHUNK * 2 + _CHUNK * kp * 2
+    stages = min(_MAX_STAGES, (room - fwd_smem_bytes(kp, 0)) // stage)
+    smem = fwd_smem_bytes(kp, stages)
+    slices = -(-cin // _CHUNK)
+    chunks = 9 * slices
+    resident = _SMS * per_sm  # blocks the card holds at once
+    split = 1
+    if tiles < resident:
+        split = min(range(1, min(_MAX_SPLIT, chunks) + 1),
+                    key=lambda s: (_split_cost(tiles, chunks, resident, s),
+                                   s))
+    return dict(kernel="wgmma", launches=KERNELS_PER_CALL[dtype],
+                tile_m=_TILE_M, tiles=tiles, col_tiles=1, n_pad=kp,
+                split=split, stages=stages, smem=smem, slices=slices,
+                chunk=_CHUNK, chunks=chunks,
+                chunk_ranges=tuple((r * chunks // split,
+                                    (r + 1) * chunks // split)
+                                   for r in range(split)),
+                reduce_rows=tuple((r * _TILE_M // split,
+                                   (r + 1) * _TILE_M // split)
+                                  for r in range(split)),
+                grid=(tiles * split,))
+
+
 def launch_fused_forward(x, omw, omb, weight, bias, max_dy):
     """One K1 call: -> (y [B,H,W,Cout] in x's dtype, om [B,H,W,27] f32 with
     the raw offsets in channels 0..17 and the sigmoid-ed mask in 18..26)."""
@@ -508,16 +629,18 @@ def launch_fused_forward(x, omw, omb, weight, bias, max_dy):
     _check("weight", weight, (3, 3, cin, cout), dt, dev)
     _check("bias", bias, (cout,), torch.float32, dev)
     lib = _library("fwd")
+    plan = forward_plan(dt, b, h, w, cin, cout)
     om = torch.empty((b, h, w, 27), dtype=torch.float32, device=dev)
     y = torch.empty((b, h, w, cout), dtype=dt, device=dev)
     with torch.cuda.device(dev):
         rc = lib.cp_dcn_v2_fused_forward(
             _DTYPE_CODE[dt], x.data_ptr(), omw.data_ptr(), omb.data_ptr(),
             weight.data_ptr(), bias.data_ptr(), om.data_ptr(), y.data_ptr(),
-            b, h, w, cin, cout, _radius(max_dy), _stream(dev))
+            b, h, w, cin, cout, _radius(max_dy), plan["split"],
+            plan["stages"], plan["smem"], _stream(dev))
     _raise_on(rc, "dcn_v2_fused", x, cout)
-    dcn_v2_fused.launches += KERNELS_PER_CALL
-    dcn_v2_fused.launches_by_site[_site(x, cout)] += KERNELS_PER_CALL
+    dcn_v2_fused.launches += plan["launches"]
+    dcn_v2_fused.launches_by_site[_site(x, cout)] += plan["launches"]
     return y, om
 
 
@@ -535,12 +658,14 @@ def launch_forward(x, offset, mask, weight, bias, max_dy):
     _check("weight", weight, (3, 3, cin, cout), dt, dev)
     _check("bias", bias, (cout,), torch.float32, dev)
     lib = _library("fwd")
+    plan = forward_plan(dt, b, h, w, cin, cout)
     y = torch.empty((b, h, w, cout), dtype=dt, device=dev)
     with torch.cuda.device(dev):
         rc = lib.cp_dcn_v2_forward(
             _DTYPE_CODE[dt], x.data_ptr(), offset.data_ptr(),
             mask.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), b, h, w, cin, cout, _radius(max_dy), _stream(dev))
+            y.data_ptr(), b, h, w, cin, cout, _radius(max_dy),
+            plan["split"], plan["stages"], plan["smem"], _stream(dev))
     _raise_on(rc, "dcn_v2", x, cout)
     dcn_v2.launches += 1
     dcn_v2.launches_by_site[_site(x, cout)] += 1
@@ -724,9 +849,9 @@ def dcn_v2_fused(x: torch.Tensor, omw: torch.Tensor, omb: torch.Tensor,
 
 
 # Launch counts of the kernels: a successful launch adds to its wrapper's
-# count (KERNELS_PER_CALL for a K1 call: the om conv, then the product; one
-# for a K2 call; one for a backward call), nothing else does.  Callers reset
-# them with ``reset_launch_counts``.
+# count (KERNELS_PER_CALL[dtype] for a K1 call: one in bf16, two in
+# float32; one for a K2 call; one for a backward call), nothing else does.
+# Callers reset them with ``reset_launch_counts``.
 COUNTED = (dcn_v2_fused, dcn_v2, dcn_v2_backward)
 for _fn in COUNTED:
     _fn.launches = 0

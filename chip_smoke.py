@@ -15,22 +15,28 @@ prints one flushed line per phase with the seconds it took:
    DCN site shapes of dla_34 @512, batch 1, in float32 (TF32 off) and
    bfloat16, and at batch 8 (the serving batch) in bfloat16, with offsets
    large enough to exercise the y-clamp; time per call beside the plain
-   version's and the bound of the card;
+   version's, the bound of the card, the bytes the call gathers (mostly
+   from L2) and the bf16 launch plan (tile, split, stages, launches); K1's
+   time per forward (the 16 calls) at batch 1 and 8;
 3. training kernel check: K2 (``dcn_v2``) and the backward kernel
    (``dcn_v2_backward``: dx, doffset, dmask, dW, dbias) against their plain
    versions (``ops/dcn.dcn_v2`` and its autograd) on one cotangent, at the 7
    site shapes, in float32 at batch 1 and bfloat16 at batch 8 (the training
-   batch), with offsets that clamp at some taps;
+   batch), with offsets that clamp at some taps; K2's time per step (16
+   calls) at batch 8;
    then a determinism check: at the 7 site shapes, batch 8, in bfloat16
    and float32, two backward calls on the same inputs give bit-equal dx,
-   doffset, dmask, dW and dbias; and an edge check at a 384x384 site whose
+   doffset, dmask, dW and dbias, and at batch 1 and 8 in bfloat16 two K1
+   calls bit-equal y and om, two K2 calls bit-equal y (split plans among
+   them); and an edge check at a 384x384 site whose
    reference backward falls back to the VJP of ``jnp.clip`` (gradient 0.5
    where |dy| is exactly R): the kernel with that edge against the plain
    version, and against itself with edge 1;
 4. model check: the whole model's inference kernel path against its plain
    path on the card (head errors, overlap of the top-100 decoded centers),
-   in float32 and bfloat16, and 16 K1 calls (32 kernel launches: the om
-   conv and the product) per forward;
+   in float32 and bfloat16, and 16 K1 calls per forward (16 kernel
+   launches in bfloat16, one a call; 32 in float32: the om conv and the
+   product);
 5. training model check: one training step at 512x512, batch 2, float32,
    from the snapshot, kernel path against plain path: the loss, every
    parameter's gradient and the BatchNorm statistics after the step; 16 K2
@@ -164,6 +170,25 @@ def k1_bound(b: int, hw: int, cin: int, cout: int, dtype: str):
                                        else "operations")
 
 
+def gather_bytes(b: int, hw: int, cin: int, fused: bool) -> float:
+    """Bytes one bf16 call gathers (mostly from L2, some from L1): four
+    corners of every (pixel, tap, channel) for the product, one for K1's
+    om conv.  Beside the bound, not in it (the bound counts each input
+    once)."""
+    return 2.0 * b * hw * hw * 9 * cin * (4 + (1 if fused else 0))
+
+
+def plan_text(dtype, b: int, hw: int, cin: int, cout: int) -> str:
+    from centerpose_tpu_torch.ops import dcn_cuda as dc
+
+    p = dc.forward_plan(dtype, b, hw, hw, cin, cout)
+    if p["kernel"] != "wgmma":
+        return f"plan {p['kernel']} launches {p['launches']}"
+    return (f"plan tile {p['tile_m']}x{p['n_pad']} split {p['split']} "
+            f"stages {p['stages']} smem {p['smem']} grid {p['grid'][0]} "
+            f"launches {p['launches']}")
+
+
 def k1_inputs(seed: int, b: int, hw: int, cin: int, cout: int):
     """Random x and weights; om weights scaled so that the offsets have a
     std of about 12 cells, so that |dy| exceeds every site's clamp R at
@@ -218,6 +243,8 @@ def kernel_check():
     from centerpose_tpu_torch.ops.dcn import dcn_v2_fused_plain
 
     entries = {}
+    per_fwd = {1: 0.0, 8: 0.0}  # bf16 K1 ms per forward (16 calls)
+    calls = {(cin, cout, hw): n for cin, cout, hw, n in SITES}
     cases = [(cin, cout, hw, dc.site_max_dy(hw, hw, cin, cout, "pallas_full"))
              for cin, cout, hw, _ in SITES]
     check([c[3] for c in cases] == [24, 12, 12, 12, 12, 12, 6],
@@ -249,7 +276,11 @@ def kernel_check():
                 f"max_abs_err {err:.3e} (rel {rel:.2e}, tol "
                 f"{TOL_K1[dtype]:.0e}; |dy|>R at {clamped:.1%} of taps) "
                 f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                f"bound {bound_ms:.5f} ms ({bound_by})")
+                f"bound {bound_ms:.5f} ms ({bound_by}); gathers "
+                f"{gather_bytes(1, hw, cin, True) / 1e6:.1f} MB; "
+                + plan_text(getattr(torch, dtype), 1, hw, cin, cout))
+            if dtype == "bfloat16" and r is not None:
+                per_fwd[1] += calls[(cin, cout, hw)] * ms
             check(rel <= TOL_K1[dtype],
                   f"K1 {cin}->{cout} @{hw} {dtype}: rel err {rel:.3e}")
             if dtype == "bfloat16" and r is not None:
@@ -278,9 +309,15 @@ def kernel_check():
         say(f"  K1 {cin}->{cout} @{hw}x{hw} R={r} bfloat16 batch 8: "
             f"max_abs_err {err8:.3e} (rel {rel8:.2e}, tol "
             f"{TOL_K1['bfloat16']:.0e}) kernel {ms8:.4f} ms "
-            f"plain {plain8:.4f} ms bound {bound8:.5f} ms ({by8})")
+            f"plain {plain8:.4f} ms bound {bound8:.5f} ms ({by8}); gathers "
+            f"{gather_bytes(8, hw, cin, True) / 1e6:.1f} MB; "
+            + plan_text(torch.bfloat16, 8, hw, cin, cout))
+        if r is not None:
+            per_fwd[8] += calls[(cin, cout, hw)] * ms8
         check(rel8 <= TOL_K1["bfloat16"],
               f"K1 {cin}->{cout} @{hw} bfloat16 batch 8: rel err {rel8:.3e}")
+    say(f"  K1 bfloat16 per forward (16 calls, sum of the site times): "
+        f"batch 1 {per_fwd[1]:.4f} ms, batch 8 {per_fwd[8]:.4f} ms")
     return entries
 
 
@@ -354,9 +391,10 @@ def model_check(state_dict):
             finally:
                 dla.dcn_v2_fused = dc.dcn_v2_fused
             torch.cuda.synchronize()
-        check(launches == 16 * dc.KERNELS_PER_CALL,
+        per_call = dc.KERNELS_PER_CALL[getattr(torch, dtype)]
+        check(launches == 16 * per_call,
               f"K1 kernel launches per forward: {launches}")
-        want = {(cin, cout, hw, hw): n * dc.KERNELS_PER_CALL
+        want = {(cin, cout, hw, hw): n * per_call
                 for cin, cout, hw, n in SITES}
         check(by_site == want, f"K1 launches by site: {by_site}")
         errs = {}
@@ -382,7 +420,7 @@ def model_check(state_dict):
         check(tuple(dets.shape) == (2, 100, 40)
               and bool(torch.isfinite(dets).all()), "decode output")
         say(f"  model {dtype} 512x512 batch 2: K1 kernel launches/forward "
-            f"{launches} ({launches // dc.KERNELS_PER_CALL} calls); "
+            f"{launches} ({launches // per_call} calls); "
             "head rel err kernel vs plain "
             + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
             + f"; top-100 center overlap {overlap:.2f}; {n_conf} centers "
@@ -459,7 +497,7 @@ def serving(state_dict):
     launches = dict(dc.dcn_v2_fused.launches_by_site)
     total = dc.dcn_v2_fused.launches
     forwards = 4 + 1 + n_iter
-    check(total == 16 * dc.KERNELS_PER_CALL * forwards,
+    check(total == 16 * dc.KERNELS_PER_CALL[torch.bfloat16] * forwards,
           f"K1 kernel launches {total} for {forwards} forwards")
     check(dets.shape == (8, 100, 40) and np.isfinite(dets).all(),
           f"run_batch: {dets.shape}")
@@ -564,6 +602,7 @@ def train_kernel_check():
     from centerpose_tpu_torch.ops.dcn import dcn_v2, dcn_v2_backward_plain
 
     entries = {}
+    k2_step = 0.0  # bf16 K2 ms per batch-8 step (16 calls)
     rs = [dc.train_site_max_dy(hw, hw, cin, cout, "pallas_full")
           for cin, cout, hw, _ in SITES]
     check(rs == [24, 12, 12, 12, 12, 12, 6], f"training site policy: {rs}")
@@ -572,7 +611,7 @@ def train_kernel_check():
     edges = [dc.train_site_edge_grad(hw, hw, cin, cout, "pallas_full")
              for cin, cout, hw, _ in SITES]
     check(edges == [1.0] * 7, f"training edge gradients at 512: {edges}")
-    for i, ((cin, cout, hw, _), r) in enumerate(zip(SITES, rs)):
+    for i, ((cin, cout, hw, n_calls), r) in enumerate(zip(SITES, rs)):
         for dtype, b in (("float32", 1), ("bfloat16", 1),
                          ("bfloat16", TRAIN_BATCH)):
             dt = getattr(torch, dtype)
@@ -615,13 +654,16 @@ def train_kernel_check():
                 f"kernel {bwd_ms:.4f} ms plain {bwd_plain_ms:.4f} ms bound "
                 f"{bb:.5f} ms ({bby}); max_abs_err (rel) "
                 + " ".join(f"{k} {e:.3e} ({q:.1e})"
-                           for k, (e, q) in errs.items()))
+                           for k, (e, q) in errs.items())
+                + f"; fwd gathers {gather_bytes(b, hw, cin, False) / 1e6:.1f}"
+                f" MB; fwd " + plan_text(dt, b, hw, cin, cout))
             for name, (_, rel) in errs.items():
                 tol = (TOL_K2 if name == "y" else TOL_BWD)[dtype]
                 check(rel <= tol, f"{name} {cin}->{cout} @{hw} {dtype}: rel "
                       f"err {rel:.3e} > {tol:.0e}")
             if b != TRAIN_BATCH:
                 continue
+            k2_step += n_calls * ms
             site = (cin, cout, hw, hw)
             wide = hw == 128
             entries[("dcn_v2", site)] = {
@@ -645,15 +687,44 @@ def train_kernel_check():
                 "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bb,
                 "bound_by": bby, "library_ms": None}
             del x, off, mask, w, bias, ct
+    say(f"  K2 bfloat16 per batch-{TRAIN_BATCH} step (16 calls, sum of the "
+        f"site times): {k2_step:.4f} ms")
     return entries
 
 
 def determinism_check():
-    """Two backward calls on the same inputs give bit-equal gradients at
-    every site shape, batch 8, in bfloat16 and float32."""
+    """Two calls on the same inputs give the same bits: the backward's
+    gradients at every site shape, batch 8, in bfloat16 and float32; K1's
+    y and om and K2's y at every site shape, batch 1 and 8, in bfloat16
+    (split plans among them)."""
     import torch
 
     from centerpose_tpu_torch.ops import dcn_cuda as dc
+
+    bf16 = torch.bfloat16
+    for i, (cin, cout, hw, _) in enumerate(SITES):
+        r = dc.site_max_dy(hw, hw, cin, cout, "pallas_full")
+        for b in (1, TRAIN_BATCH):
+            args = on_card(k1_inputs(700 + i, b, hw, cin, cout), bf16)
+            y1, om1 = dc.launch_fused_forward(*args, r)
+            y2, om2 = dc.launch_fused_forward(*args, r)
+            x, off, mask, w, bias, _ = [
+                t.to("cuda", bf16 if j != 4 else torch.float32).contiguous()
+                for j, t in enumerate(k2_inputs(800 + i, b, hw, cin, cout,
+                                                r))]
+            z1 = dc.dcn_v2(x, off, mask, w, bias, r)
+            z2 = dc.dcn_v2(x, off, mask, w, bias, r)
+            torch.cuda.synchronize()
+            same = {"K1 y": bool(torch.equal(y1, y2)),
+                    "K1 om": bool(torch.equal(om1, om2)),
+                    "K2 y": bool(torch.equal(z1, z2))}
+            split = dc.forward_plan(bf16, b, hw, hw, cin, cout)["split"]
+            say(f"  determinism {cin}->{cout} @{hw}x{hw} bfloat16 batch {b}"
+                f" (split {split}): bit-equal "
+                + " ".join(f"{n}={v}" for n, v in same.items()))
+            check(all(same.values()), f"forward not deterministic at "
+                  f"{cin}->{cout} @{hw} batch {b}: {same}")
+            del args, y1, y2, om1, om2, x, off, mask, w, bias, z1, z2
 
     for i, (cin, cout, hw, _) in enumerate(SITES):
         r = dc.train_site_max_dy(hw, hw, cin, cout, "pallas_full")

@@ -48,7 +48,7 @@ def test_k1_matches_plain(cuda, b, h, w, cin, cout, r, dtype):
     args = _args(cin + cout, b, h, w, cin, cout, dtype, cuda)
     dc.reset_launch_counts()
     got = dc.dcn_v2_fused(*args, r)
-    assert dc.dcn_v2_fused.launches == dc.KERNELS_PER_CALL
+    assert dc.dcn_v2_fused.launches == dc.KERNELS_PER_CALL[dtype]
     ref = dcn_v2_fused_plain(*args, r)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (b, h, w, cout)
@@ -56,6 +56,72 @@ def test_k1_matches_plain(cuda, b, h, w, cin, cout, r, dtype):
     scale = ref.float().abs().max().item()
     # f32: summation order only; bf16: the final rounding (an ulp or two)
     assert err <= (1e-4 if dtype == torch.float32 else 1e-2) * scale
+
+
+# bf16 launch plans: (shape, split) with the reduction split across a
+# cluster (few tiles) and not (enough tiles to fill the card), each with
+# ragged Cin or Cout among them
+_PLAN_SHAPES = [((1, 16, 16, 512, 256, 24), 8), ((2, 9, 13, 40, 70, 2.0), 5),
+                ((2, 32, 48, 96, 130, 0.5), 5),
+                ((2, 64, 160, 64, 64, 6.0), 1), ((1, 128, 136, 3, 5, None), 1),
+                ((2, 96, 96, 128, 128, 12.0), 1)]
+
+
+@pytest.mark.parametrize("shape,split", _PLAN_SHAPES)
+def test_k1_k2_bf16_plans_match_plain(cuda, shape, split):
+    """K1 and K2 in bf16 at split and unsplit plans against their plain
+    versions, one launch per call."""
+    from centerpose_tpu_torch.ops.dcn import dcn_v2
+
+    b, h, w, cin, cout, r = shape
+    plan = dc.forward_plan(torch.bfloat16, b, h, w, cin, cout)
+    assert plan["split"] == split
+    args = _args(cin + 2 * cout, b, h, w, cin, cout, torch.bfloat16, cuda)
+    x, off, mask, wgt, bias, _ = _train_args(cin + 5 * cout, b, h, w, cin,
+                                             cout, torch.bfloat16, cuda, r)
+    dc.reset_launch_counts()
+    got1 = dc.dcn_v2_fused(*args, r)
+    got2 = dc.dcn_v2(x, off, mask, wgt, bias, r)
+    assert dc.dcn_v2_fused.launches == dc.KERNELS_PER_CALL[torch.bfloat16]
+    assert dc.dcn_v2.launches == 1
+    ref1 = dcn_v2_fused_plain(*args, r)
+    ref2 = dcn_v2(x, off, mask, wgt, bias, r)
+    torch.cuda.synchronize()
+    assert _rel(got1, ref1) <= _TOL_FWD[torch.bfloat16]
+    assert _rel(got2, ref2) <= _TOL_FWD[torch.bfloat16]
+
+
+@pytest.mark.parametrize("shape,split", _PLAN_SHAPES)
+def test_k1_k2_are_bit_deterministic(cuda, shape, split):
+    """Two calls on the same inputs give the same bits: y of K1 and K2 and
+    K1's om, at split plans too (the cluster sums its partials in rank
+    order)."""
+    b, h, w, cin, cout, r = shape
+    args = _args(cin + 2 * cout, b, h, w, cin, cout, torch.bfloat16, cuda)
+    x, off, mask, wgt, bias, _ = _train_args(cin + 5 * cout, b, h, w, cin,
+                                             cout, torch.bfloat16, cuda, r)
+    first = dc.launch_fused_forward(*args, r)
+    second = dc.launch_fused_forward(*args, r)
+    k2 = [dc.dcn_v2(x, off, mask, wgt, bias, r) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1],
+                                                            second[1])
+    assert torch.equal(k2[0], k2[1])
+
+
+def test_k1_writes_om_for_its_backward(cuda):
+    """K1's om: the raw offsets and the sigmoid-ed mask of the om conv, as
+    the backward reads them (the om conv is computed in the kernel)."""
+    from centerpose_tpu_torch.ops.dcn import offset_mask
+
+    for shape in ((1, 16, 16, 512, 256), (2, 64, 160, 64, 64)):
+        b, h, w, cin, cout = shape
+        args = _args(cin, b, h, w, cin, cout, torch.bfloat16, cuda)
+        _, om = dc.launch_fused_forward(*args, 6.0)
+        off, mask = offset_mask(*args[:3])
+        torch.cuda.synchronize()
+        assert _rel(om[..., :18], off) <= 1e-4
+        assert _rel(om[..., 18:], mask) <= 1e-4
 
 
 def test_k1_rejects_bad_operands(cuda):
@@ -150,7 +216,7 @@ def test_k1_function_gradient_matches_plain(cuda, dtype):
         y.backward(ct)
         outs.append([t.grad for t in leaves])
         if fn is dc.dcn_v2_fused:
-            assert dc.dcn_v2_fused.launches == dc.KERNELS_PER_CALL
+            assert dc.dcn_v2_fused.launches == dc.KERNELS_PER_CALL[dtype]
             assert dc.dcn_v2_backward.launches == 1
     # bf16: the kernel samples at K1's f32 om, the plain path at its f32
     # conv: the same offsets up to summation order
