@@ -78,9 +78,10 @@
 //   SM); TMA cannot express the gather.  8 lanes per row halve the L2
 //   requests of 8 pixels per quarter-warp; the price, an 8-way bank
 //   conflict on one 16-byte store per sample group, is small beside it.
-//   The om items' fence (fence.proxy.async before each publish) also waits
-//   for the copies still in flight, which limits how far their pipeline
-//   runs ahead.
+//   The om phase costs more than its one-corner gather suggests; giving
+//   its copies to separate loader warps, so that the threads that fence
+//   (fence.proxy.async waits for a thread's copies in flight) have none,
+//   did not make it faster.
 //
 // float32 keeps the CUDA-core kernels of the first port (full f32, no
 // TF32), two launches per K1 call:
