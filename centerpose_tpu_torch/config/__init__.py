@@ -6,6 +6,7 @@ from centerpose_tpu_torch.config.defaults import (
     TrainConfig,
     TestConfig,
     default_config,
+    flagship_config,
     load_config,
     update_config,
 )
@@ -18,6 +19,7 @@ __all__ = [
     "TrainConfig",
     "TestConfig",
     "default_config",
+    "flagship_config",
     "load_config",
     "update_config",
 ]

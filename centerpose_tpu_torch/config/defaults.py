@@ -197,6 +197,15 @@ def update_config(cfg: Config, overrides: Dict[str, Any]) -> Config:
     return cfg
 
 
+def _apply_opts(cfg: Config, opts: Optional[List[str]]) -> Config:
+    if not opts:
+        return cfg
+    if len(opts) % 2 != 0:
+        raise ValueError("opts must be KEY VALUE pairs")
+    return update_config(cfg, {opts[i]: opts[i + 1]
+                               for i in range(0, len(opts), 2)})
+
+
 def load_config(path: Optional[str] = None, opts: Optional[List[str]] = None) -> Config:
     """Load a YAML experiment file and apply ``KEY VALUE`` CLI override pairs.
 
@@ -211,12 +220,24 @@ def load_config(path: Optional[str] = None, opts: Optional[List[str]] = None) ->
         with open(path) as f:
             data = yaml.safe_load(f) or {}
         cfg = update_config(cfg, data)
-    if opts:
-        if len(opts) % 2 != 0:
-            raise ValueError("opts must be KEY VALUE pairs")
-        flat = {opts[i]: opts[i + 1] for i in range(0, len(opts), 2)}
-        cfg = update_config(cfg, flat)
-    return cfg
+    return _apply_opts(cfg, opts)
+
+
+# experiments/dla_34_512x512.yaml as a dict, for callers that read no yaml
+# (the card's machine has no PyYAML): dla_34 @512, the pallas_full DCN site
+# policy, bfloat16, and its train block.
+FLAGSHIP = {
+    "model": {"name": "dla_34", "input_res": 512, "output_res": 128,
+              "head_conv": 256, "dcn_impl": "pallas_full", "dcn_max_dy": 0,
+              "compute_dtype": "bfloat16"},
+    "train": {"lr": 1.25e-4, "lr_step": (90, 120), "epochs": 140,
+              "batch_size": 32, "wire": "compact"},
+}
+
+
+def flagship_config(opts: Optional[List[str]] = None) -> Config:
+    """The flagship config (``FLAGSHIP``) with ``KEY VALUE`` overrides."""
+    return _apply_opts(update_config(default_config(), FLAGSHIP), opts)
 
 
 def config_to_dict(cfg: Config) -> Dict[str, Any]:

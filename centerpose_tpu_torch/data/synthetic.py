@@ -1,17 +1,35 @@
-"""Synthetic persons with exact keypoint annotations.
+"""Synthetic multi-person scenes with exact keypoint annotations.
 
-Counterpart of ``make_person`` in ``centerpose_tpu/data/synthetic.py``
-(numpy only; the scene renderers there draw with cv2 and are not ported
-yet): a randomly placed, scaled and jittered 17-joint skeleton in COCO
-annotation format, so that it flows through the same encode path as real
-data.  Bit-exact with the JAX package's for the same generator stream.
+Counterpart of ``centerpose_tpu/data/synthetic.py``: procedurally rendered
+stick figures with a 17-joint skeleton, in COCO annotation format, so that
+they flow through the same encode and evaluation paths as real data.  The
+easy scenes (``render_scene``) and the hard benchmark's (``render_scene_hard``:
+crowding, tiny persons, articulated limbs, clutter, occluders) draw through
+``data/draw.py`` instead of cv2, and are bit-equal to the JAX package's
+images and annotations for the same generator stream.
+``SyntheticPoseDataset`` makes scene ``i`` from the generator seeded with
+``(seed, i, hard)``; ``SyntheticEvalDataset`` exposes a split of them to the
+detector -> ``convert_eval_format`` -> OKS AP chain.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from centerpose_tpu_torch.data import draw
+
+# Skeleton edges of the 17 COCO keypoints (the renderers' limbs).
+COCO_EDGES = [
+    [0, 1], [0, 2], [1, 3], [2, 4],
+    [3, 5], [4, 6], [5, 6],
+    [5, 7], [7, 9], [6, 8], [8, 10],
+    [5, 11], [6, 12], [11, 12],
+    [11, 13], [13, 15], [12, 14], [14, 16],
+]
 
 # Canonical upright skeleton in a unit box (x, y in [0, 1]), COCO joint order.
 _CANON = np.array(
@@ -51,3 +69,253 @@ def make_person(rng: np.random.Generator, img_w: int,
         "category_id": 1,
     }
     return ann, joints
+
+
+def _pt(p: np.ndarray) -> Tuple[int, int]:
+    """Integer pixel of a float point, truncated toward zero as
+    ``astype(int)`` does (not floored: persons may start left of 0)."""
+    q = p.astype(int)
+    return int(q[0]), int(q[1])
+
+
+def _color(rng: np.random.Generator, lo: int, hi: int) -> Tuple[int, ...]:
+    return tuple(int(c) for c in rng.integers(lo, hi, 3))
+
+
+def render_scene(rng: np.random.Generator, img_w: int = 640, img_h: int = 480,
+                 n_people: int = 2) -> Tuple[np.ndarray, List[Dict]]:
+    """Render an RGB scene of stick figures; returns (HWC uint8, coco anns)."""
+    img = np.full((img_h, img_w, 3), 32, np.uint8)
+    # textured background so the net can't cheat on constant inputs
+    noise = rng.integers(0, 40, (img_h // 8, img_w // 8, 3), dtype=np.uint8)
+    img += draw.resize_nearest(noise, (img_w, img_h))
+    anns = []
+    for _ in range(n_people):
+        ann, joints = make_person(rng, img_w, img_h)
+        color = _color(rng, 120, 255)
+        for a, b in COCO_EDGES:
+            draw.line(img, _pt(joints[a]), _pt(joints[b]), color,
+                      thickness=max(2, int(ann["bbox"][3] / 40)))
+        # head disc
+        draw.circle_filled(img, _pt(joints[0]),
+                           max(3, int(ann["bbox"][3] / 16)), color)
+        for j in range(17):
+            draw.circle_filled(img, _pt(joints[j]), 2, (255, 255, 255))
+        anns.append(ann)
+    return img, anns
+
+
+_LIMB_CHAINS = (
+    # (parent, child) chains articulated by the hard renderer
+    (5, 7), (7, 9),      # left arm: shoulder->elbow->wrist
+    (6, 8), (8, 10),     # right arm
+    (11, 13), (13, 15),  # left leg: hip->knee->ankle
+    (12, 14), (14, 16),  # right leg
+)
+
+
+def _articulate(joints: np.ndarray, rng: np.random.Generator,
+                max_deg: float = 45.0) -> np.ndarray:
+    """Rotate each limb segment about its parent joint by a random angle,
+    propagating down the chain."""
+    j = joints.copy()
+    for parent, child in _LIMB_CHAINS:
+        ang = np.deg2rad(rng.uniform(-max_deg, max_deg))
+        c, s = np.cos(ang), np.sin(ang)
+        rot = np.array([[c, -s], [s, c]], np.float32)
+        # rotate the child and everything downstream of it
+        downstream = [child] + [cc for pp, cc in _LIMB_CHAINS if pp == child]
+        pivot = j[parent]
+        for d in downstream:
+            j[d] = pivot + rot @ (j[d] - pivot)
+    return j
+
+
+def make_person_hard(rng: np.random.Generator, img_w: int,
+                     img_h: int) -> Tuple[Dict, np.ndarray]:
+    """Hard-mode person: log-uniform scale down to ~6% of image height,
+    articulated limbs, global tilt; joints outside the frame get vis=1."""
+    ph = np.exp(rng.uniform(np.log(0.06), np.log(0.62))) * img_h
+    pw = ph * rng.uniform(0.3, 0.55)
+    x0 = rng.uniform(-0.2 * pw, img_w - 0.8 * pw)
+    y0 = rng.uniform(-0.2 * ph, img_h - 0.8 * ph)
+    joints = _CANON.copy()
+    joints[:, 0] = joints[:, 0] * pw
+    joints[:, 1] = joints[:, 1] * ph
+    joints = _articulate(joints, rng)
+    ang = np.deg2rad(rng.uniform(-25, 25))
+    c, s = np.cos(ang), np.sin(ang)
+    ctr = joints.mean(0)
+    joints = (joints - ctr) @ np.array([[c, s], [-s, c]], np.float32) + ctr
+    joints[:, 0] += x0 + rng.normal(0, 0.015 * pw, 17)
+    joints[:, 1] += y0 + rng.normal(0, 0.015 * ph, 17)
+    xs, ys = joints[:, 0], joints[:, 1]
+    bx0, by0 = float(xs.min()), float(ys.min())
+    bw, bh = float(xs.max() - bx0), float(ys.max() - by0)
+    vis = np.full(17, 2, np.int32)
+    inside = ((xs >= 0) & (xs < img_w) & (ys >= 0) & (ys < img_h))
+    vis[~inside] = 1  # labeled, outside the frame
+    kp = []
+    for j in range(17):
+        kp += [float(joints[j, 0]), float(joints[j, 1]), int(vis[j])]
+    ann = {
+        "bbox": [bx0, by0, bw, bh],
+        "keypoints": kp,
+        "area": bw * bh,
+        "iscrowd": 0,
+        "category_id": 1,
+    }
+    return ann, joints
+
+
+def render_scene_hard(rng: np.random.Generator, img_w: int = 640,
+                      img_h: int = 480,
+                      n_people: int = 6) -> Tuple[np.ndarray, List[Dict]]:
+    """Hard benchmark scene: heavy crowding (overlap allowed), log-uniform
+    scale down to tiny persons, articulated poses, low-contrast colours,
+    skeleton-like background clutter, and occluder patches that flip the
+    joints they cover to vis=1.  A converged flagship lands mid-range AP
+    here, so accuracy differences of a few thousandths are resolvable."""
+    img = np.full((img_h, img_w, 3), 40, np.uint8)
+    noise = rng.integers(0, 70, (img_h // 4, img_w // 4, 3), dtype=np.uint8)
+    img += draw.resize_nearest(noise, (img_w, img_h))
+
+    # skeleton-like clutter: limb-coloured segments and small discs
+    for _ in range(int(rng.integers(6, 16))):
+        p = rng.uniform([0, 0], [img_w, img_h]).astype(int)
+        q = (p + rng.normal(0, 40, 2)).astype(int)
+        color = _color(rng, 70, 255)
+        draw.line(img, _pt(p), _pt(q), color,
+                  thickness=int(rng.integers(1, 4)))
+    for _ in range(int(rng.integers(3, 9))):
+        p = rng.uniform([0, 0], [img_w, img_h]).astype(int)
+        draw.circle_filled(img, _pt(p), int(rng.integers(2, 7)),
+                           _color(rng, 120, 255))
+
+    anns: List[Dict] = []
+    all_joints: List[np.ndarray] = []
+    order = []
+    for _ in range(n_people):
+        ann, joints = make_person_hard(rng, img_w, img_h)
+        order.append((ann["bbox"][3], ann, joints))  # draw big->small
+    order.sort(key=lambda t: -t[0])
+    for _, ann, joints in order:
+        color = _color(rng, 70, 255)
+        th = max(1, int(ann["bbox"][3] / 45))
+        for a, b in COCO_EDGES:
+            draw.line(img, _pt(joints[a]), _pt(joints[b]), color, thickness=th)
+        draw.circle_filled(img, _pt(joints[0]),
+                           max(2, int(ann["bbox"][3] / 18)), color)
+        for j in range(17):
+            draw.circle_filled(img, _pt(joints[j]), max(1, th // 2),
+                               (255, 255, 255))
+        anns.append(ann)
+        all_joints.append(joints)
+
+    # occluder patches over the rendered people; covered joints -> vis=1
+    for _ in range(int(rng.integers(1, 5))):
+        ow = int(rng.uniform(0.05, 0.22) * img_w)
+        oh = int(rng.uniform(0.05, 0.22) * img_h)
+        ox = int(rng.uniform(0, img_w - ow))
+        oy = int(rng.uniform(0, img_h - oh))
+        color = _color(rng, 20, 110)
+        draw.rectangle_filled(img, (ox, oy), (ox + ow, oy + oh), color)
+        for ann, joints in zip(anns, all_joints):
+            kp = ann["keypoints"]
+            for j in range(17):
+                jx, jy = joints[j]
+                if (ox <= jx < ox + ow and oy <= jy < oy + oh
+                        and kp[3 * j + 2] == 2):
+                    kp[3 * j + 2] = 1
+    return img, anns
+
+
+class SyntheticPoseDataset:
+    """Dataset over procedurally generated scenes, deterministic per
+    (seed, index): ``__len__`` and ``get_raw(i) -> (img, anns)``."""
+
+    def __init__(self, num_samples: int = 64, img_w: int = 640,
+                 img_h: int = 480, max_people: int = 3, seed: int = 0,
+                 hard: bool = False):
+        self.num_samples = num_samples
+        self.img_w, self.img_h = img_w, img_h
+        self.max_people = 10 if (hard and max_people == 3) else max_people
+        self.seed = seed
+        self.hard = hard
+
+    def __len__(self):
+        return self.num_samples
+
+    def get_raw(self, i: int):
+        rng = np.random.default_rng((self.seed, i, int(self.hard)))
+        if self.hard:
+            n = int(rng.integers(3, self.max_people + 1))
+            return render_scene_hard(rng, self.img_w, self.img_h, n)
+        n = int(rng.integers(1, self.max_people + 1))
+        return render_scene(rng, self.img_w, self.img_h, n)
+
+
+class SyntheticEvalDataset:
+    """A synthetic val split with the COCO evaluation interface: stable
+    image ids (the scene index), gt annotation dicts, detection conversion
+    and OKS AP (``run_eval``).  The hard benchmark is 512 scenes of seed 3
+    with ``hard=True``."""
+
+    def __init__(self, num_samples: int = 64, seed: int = 2, **kw):
+        self.ds = SyntheticPoseDataset(num_samples, seed=seed, **kw)
+        self.img_ids = list(range(num_samples))
+        self._scenes: Optional[List] = None
+
+    def __len__(self):
+        return len(self.ds)
+
+    def render(self, workers: int = 0) -> None:
+        """Render every scene once and keep it (0.9 MB each at 640x480):
+        ``get_raw``, ``items`` and ``gt_annotations`` then read the kept
+        scenes instead of drawing them again.  ``workers > 0`` draws in
+        that many spawned processes."""
+        if workers > 0:
+            ctx = multiprocessing.get_context("spawn")
+            with ProcessPoolExecutor(workers, mp_context=ctx) as ex:
+                self._scenes = list(ex.map(self.ds.get_raw, range(len(self)),
+                                           chunksize=16))
+        else:
+            self._scenes = [self.ds.get_raw(i) for i in range(len(self))]
+
+    def get_raw(self, i: int):
+        if self._scenes is not None:
+            return self._scenes[i]
+        return self.ds.get_raw(i)
+
+    def items(self):
+        """Yield (image_id, image) pairs."""
+        for i in range(len(self)):
+            img, _ = self.get_raw(i)
+            yield i, img
+
+    def gt_annotations(self) -> List[Dict]:
+        gts = []
+        for i in range(len(self)):
+            _, anns = self.get_raw(i)
+            for k, a in enumerate(anns):
+                gts.append(dict(a, id=i * 100 + k + 1, image_id=i, iscrowd=0))
+        return gts
+
+    def convert_eval_format(self, results) -> List[Dict]:
+        from centerpose_tpu_torch.data.coco import convert_eval_format
+
+        return convert_eval_format(results)
+
+    def run_eval(self, results, img_ids=None) -> Dict[str, float]:
+        """Keypoint OKS AP of ``results`` ({image_id: {1: [N, 39]}}).
+        ``img_ids``: score only that subset of the split (partial results
+        against the whole split's gts would count every image not run as
+        all misses)."""
+        from centerpose_tpu_torch.eval.coco_eval import evaluate_keypoints
+
+        dets = self.convert_eval_format(results)
+        gts = self.gt_annotations()
+        if img_ids is not None:
+            ids = set(int(i) for i in img_ids)
+            gts = [g for g in gts if int(g["image_id"]) in ids]
+        return evaluate_keypoints(gts, dets)

@@ -1,19 +1,21 @@
-"""Inference pipeline: pre-process -> forward + decode -> post-process.
+"""Inference pipeline: pre-process -> forward + decode -> post-process
+-> merge.
 
-Counterpart of ``centerpose_tpu/inference/detector.py``: fix_res affine
-warp to ``input_res`` (or keep_res padded to ``test.pad_bucket``), uint8
-normalisation on the device, optional flip test as a batch of two,
-clamped sigmoid, decode at K = ``test.topk``, host inverse affine.
+Counterpart of ``centerpose_tpu/inference/detector.py``: per scale, a
+bilinear resize and the fix_res affine warp to ``input_res`` (or keep_res
+padded to ``test.pad_bucket``), uint8 normalisation on the device, optional
+flip test as a batch of two, clamped sigmoid, decode at K = ``test.topk``,
+host inverse affine; then the scales' detections are concatenated, merged
+by soft-NMS under multi-scale or ``test.nms``, and the top K kept.
 
 Everything up to the decoded [B, K, 40] rows runs on the device: the image
-is uploaded as uint8 and warped there (no cv2).  Multi-scale testing needs
-the soft-NMS merge, which is not ported yet, and raises.
+is uploaded as uint8 once and resized and warped there (no cv2).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -26,7 +28,8 @@ from centerpose_tpu_torch.models.common import (to_channels_last,
 from centerpose_tpu_torch.models.factory import create_model, model_dtype
 from centerpose_tpu_torch.ops.decode import multi_pose_decode
 from centerpose_tpu_torch.ops.image import (FLIP_IDX, get_affine_transform,
-                                            warp_affine)
+                                            resize_linear, warp_affine)
+from centerpose_tpu_torch.ops.soft_nms import soft_nms_39
 from centerpose_tpu_torch.utils.platform import resolve_device
 from centerpose_tpu_torch.weights import load_state_dict
 
@@ -62,12 +65,6 @@ class Detector:
 
     def __init__(self, cfg: Config, state_dict: Optional[dict] = None,
                  device: str | torch.device = "cuda"):
-        if len(cfg.test.test_scales) != 1 or cfg.test.test_scales[0] != 1.0:
-            raise NotImplementedError(
-                "multi-scale testing needs the soft-NMS merge, which is not "
-                "ported yet (ROADMAP.md); use test_scales (1.0,)")
-        if cfg.test.nms:
-            raise NotImplementedError("test.nms (soft-NMS) is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         with torch.random.fork_rng(devices=[]):
@@ -118,25 +115,31 @@ class Detector:
     # ------------------------------------------------------------------
     # host stages
     # ------------------------------------------------------------------
-    def pre_process(self, image: np.ndarray):
-        """Affine-warp one [H, W, 3] image on the device; returns
-        ([1, h, w, 3] uint8 on the device, meta).  A float image (0-255
-        pixel values) is normalised here and returned as float32."""
+    def pre_process(self, image, scale: float = 1.0):
+        """Resize one [H, W, 3] image by ``scale`` and affine-warp it on the
+        device; returns ([1, h, w, 3] uint8 on the device, meta).  ``image``
+        is a numpy array or a tensor already on the device (``run``
+        uploads once for all scales).  A float image (0-255 pixel values)
+        is normalised here and returned as float32."""
         height, width = image.shape[0:2]
+        new_height, new_width = int(height * scale), int(width * scale)
         if self.cfg.test.keep_res:
             bucket = max(32, self.cfg.test.pad_bucket)
-            inp_height = (height + bucket - 1) // bucket * bucket
-            inp_width = (width + bucket - 1) // bucket * bucket
-            c = np.array([width // 2, height // 2], dtype=np.float32)
+            inp_height = (new_height + bucket - 1) // bucket * bucket
+            inp_width = (new_width + bucket - 1) // bucket * bucket
+            c = np.array([new_width // 2, new_height // 2], dtype=np.float32)
             s = np.array([inp_width, inp_height], dtype=np.float32)
         else:
             inp_height = inp_width = self.cfg.model.input_res
-            c = np.array([width / 2.0, height / 2.0], dtype=np.float32)
+            c = np.array([new_width / 2.0, new_height / 2.0], dtype=np.float32)
             s = max(height, width) * 1.0
         trans = get_affine_transform(c, s, 0.0, (inp_width, inp_height))
-        src = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+        src = image
+        if isinstance(image, np.ndarray):
+            src = torch.from_numpy(np.ascontiguousarray(image))
+        src = resize_linear(src.to(self.device), (new_width, new_height))
         warped = warp_affine(src, trans, (inp_width, inp_height))
-        if image.dtype == np.uint8:
+        if src.dtype == torch.uint8:
             inp = warped.round_().clamp_(0, 255).to(torch.uint8)
         else:
             inp = (warped / 255.0 - self.mean) / self.std
@@ -145,35 +148,64 @@ class Detector:
                 "out_width": inp_width // down}
         return inp[None], meta
 
-    def post_process(self, dets: np.ndarray, meta: dict) -> Dict[int, np.ndarray]:
-        """[1, K, 40] grid coords -> {1: [K, 39]} original-image pixels."""
+    def post_process(self, dets: np.ndarray, meta: dict,
+                     scale: float = 1.0) -> Dict[int, np.ndarray]:
+        """[1, K, 40] grid coords -> {1: [K, 39]} original-image pixels
+        (box and joints divided by ``scale``)."""
         out = multi_pose_post_process(dets, [meta["c"]], [meta["s"]],
                                       meta["out_height"], meta["out_width"])
-        return out[0]
+        res = out[0][1]
+        if scale != 1.0:
+            res[:, :4] /= scale
+            res[:, 5:] /= scale
+        return {1: res}
+
+    def merge_outputs(self, detections: List[Dict[int, np.ndarray]]
+                      ) -> Dict[int, np.ndarray]:
+        """Concatenate the scales' rows (float32); soft-NMS (Gaussian,
+        nt 0.5) under multi-scale or ``test.nms``; keep the top K by
+        score."""
+        rows = np.concatenate([d[1] for d in detections],
+                              axis=0).astype(np.float32)
+        if self.cfg.test.nms or len(self.cfg.test.test_scales) > 1:
+            rows = soft_nms_39(rows, nt=0.5, method=2)
+        keep = np.argsort(-rows[:, 4])[: self.k]
+        return {1: rows[keep]}
 
     # ------------------------------------------------------------------
     # entry points
     # ------------------------------------------------------------------
     def run(self, image: np.ndarray) -> Dict:
-        """Full pipeline on one RGB [H, W, 3] image; returns the results and
-        per-stage wall times (seconds, device work synchronised)."""
+        """Full pipeline on one RGB [H, W, 3] image over ``test.test_scales``;
+        returns the results and per-stage wall times (seconds, device work
+        synchronised; ``pre`` includes the one upload)."""
         if not isinstance(image, np.ndarray):
             raise TypeError("Detector.run takes an [H, W, 3] numpy image; "
                             "decoding image files is not ported")
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else (lambda: None))
-        t0 = time.perf_counter()
-        images, meta = self.pre_process(image)
-        sync()
-        t1 = time.perf_counter()
-        dets = self.process(images).cpu().numpy()  # the one D2H copy
-        t2 = time.perf_counter()
-        res = self.post_process(dets, meta)
-        keep = np.argsort(-res[1][:, 4])[: self.k]
-        results = {1: res[1][keep]}
-        t3 = time.perf_counter()
-        return {"results": results, "tot": t3 - t0, "pre": t1 - t0,
-                "net": t2 - t1, "post": t3 - t2}
+        t_start = time.perf_counter()
+        src = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+        detections = []
+        pre_t = net_t = post_t = 0.0
+        t0 = t_start
+        for scale in self.cfg.test.test_scales:
+            images, meta = self.pre_process(src, scale)
+            sync()
+            t1 = time.perf_counter()
+            dets = self.process(images).cpu().numpy()  # the one D2H copy
+            t2 = time.perf_counter()
+            detections.append(self.post_process(dets, meta, scale))
+            t3 = time.perf_counter()
+            pre_t += t1 - t0
+            net_t += t2 - t1
+            post_t += t3 - t2
+            t0 = t3
+        t4 = time.perf_counter()
+        results = self.merge_outputs(detections)
+        t_end = time.perf_counter()
+        return {"results": results, "tot": t_end - t_start, "pre": pre_t,
+                "net": net_t, "post": post_t, "merge": t_end - t4}
 
     def run_batch(self, images: np.ndarray) -> np.ndarray:
         """Batched frames [N, H, W, 3] -> decoded [N, K, 40] (grid coords).

@@ -7,9 +7,11 @@ gaussians of the training targets (``gaussian_radius``, ``gaussian2d``,
 ``draw_umich_gaussian``, ``draw_dense_reg``) and the colour augmentation
 (``color_aug``, ``color_aug_coeffs``, ``COLOR_AUG_IDENTITY``), numpy on the
 host and copied so that they stay bit-exact given the same
-``np.random.Generator`` stream.  ``warp_affine`` replaces the
-``cv2.warpAffine`` calls of the JAX package with tensor ops: bilinear
-sampling with a zero border, from the same 2x3 matrix.
+``np.random.Generator`` stream.  ``warp_affine`` and ``resize_linear``
+replace the ``cv2.warpAffine`` and ``cv2.resize`` calls of the JAX package
+with tensor ops on the device: bilinear sampling with a zero border from
+the same 2x3 matrix (within one uint8 level of cv2), and bilinear resizing
+(bit-equal to cv2 on uint8 images).
 """
 
 from __future__ import annotations
@@ -144,6 +146,61 @@ def warp_affine(image: torch.Tensor, trans: np.ndarray, out_size) -> torch.Tenso
         idx = (yc.clamp(0, h - 1) * w + xc.clamp(0, w - 1)).long().reshape(-1)
         out += src[idx] * (wgt * valid.float()).reshape(-1, 1)
     return out.reshape(out_h, out_w, c)
+
+
+_COEF_BITS = 11  # cv2's INTER_RESIZE_COEF_BITS
+
+
+def _linear_taps(src: int, dst: int, clamp: bool):
+    """Source indices i0, i1 and float32 weight f of i1 along one axis of
+    ``cv2.resize``'s INTER_LINEAR: half-pixel centres,
+    ``f = float32((x + 0.5) * src / dst - 0.5)`` less its floor.  Outside
+    the image the indices are clamped to the edge; ``clamp`` also zeroes f
+    there (cv2 does so along x, not along y)."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    i0 = np.floor(f).astype(np.int64)
+    f = f - i0.astype(np.float32)
+    if clamp:
+        f[(i0 < 0) | (i0 >= src - 1)] = 0.0
+    return np.clip(i0, 0, src - 1), np.clip(i0 + 1, 0, src - 1), f
+
+
+def resize_linear(image: torch.Tensor, size) -> torch.Tensor:
+    """Resize an [H, W, C] image (any device) to ``size = (w, h)`` as
+    ``cv2.resize(image, size)`` does (INTER_LINEAR: half-pixel centres, no
+    antialias, edge pixels replicated).  A uint8 image follows cv2's 11-bit
+    fixed point as its vectorised path rounds it (rows by int32
+    multiply-adds, columns by 16-bit high products), and comes back as
+    uint8; any other dtype is resampled in float32.  The same size returns
+    the image itself: no resampling."""
+    out_w, out_h = int(size[0]), int(size[1])
+    h, w, _ = image.shape
+    if (out_w, out_h) == (w, h):
+        return image
+    dev = image.device
+    x0, x1, fx = _linear_taps(w, out_w, clamp=True)
+    y0, y1, fy = _linear_taps(h, out_h, clamp=False)
+    x0, x1, y0, y1 = (torch.from_numpy(a).to(dev) for a in (x0, x1, y0, y1))
+    if image.dtype == torch.uint8:
+        one = np.float32(1 << _COEF_BITS)
+
+        def coef(f):
+            return [torch.from_numpy(np.rint(c * one).astype(np.int32)).to(dev)
+                    for c in (np.float32(1) - f, f)]
+
+        a0, a1 = (c[None, :, None] for c in coef(fx))
+        b0, b1 = (c[:, None, None] for c in coef(fy))
+        src = image.to(torch.int32)
+        rows = src[:, x0] * a0 + src[:, x1] * a1
+        top = ((rows[y0] >> 4).clamp_(-32768, 32767) * b0) >> 16
+        bot = ((rows[y1] >> 4).clamp_(-32768, 32767) * b1) >> 16
+        return ((top + bot + 2) >> 2).clamp_(0, 255).to(torch.uint8)
+    fx = torch.from_numpy(fx).to(dev)[None, :, None]
+    fy = torch.from_numpy(fy).to(dev)[:, None, None]
+    src = image.float()
+    rows = src[:, x0] * (1 - fx) + src[:, x1] * fx
+    return rows[y0] * (1 - fy) + rows[y1] * fy
 
 
 # ---------------------------------------------------------------------------

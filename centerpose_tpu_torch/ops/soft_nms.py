@@ -1,0 +1,62 @@
+"""Soft-NMS over 39-dim pose detections, counterpart of the numpy body of
+``centerpose_tpu/ops/soft_nms.py``.
+
+Greedy pick-max with hard, linear or Gaussian score decay, on the host: it
+runs only at merge time of multi-scale testing, on at most K x scales rows.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _iou_1_to_many(box: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """IoU of one [4] box vs [N, 4] boxes (x1 y1 x2 y2)."""
+    area1 = max(0.0, box[2] - box[0]) * max(0.0, box[3] - box[1])
+    areas = np.maximum(0, boxes[:, 2] - boxes[:, 0]) * np.maximum(
+        0, boxes[:, 3] - boxes[:, 1])
+    ix1 = np.maximum(box[0], boxes[:, 0])
+    iy1 = np.maximum(box[1], boxes[:, 1])
+    ix2 = np.minimum(box[2], boxes[:, 2])
+    iy2 = np.minimum(box[3], boxes[:, 3])
+    iw = np.maximum(0.0, ix2 - ix1)
+    ih = np.maximum(0.0, iy2 - iy1)
+    inter = iw * ih
+    union = area1 + areas - inter
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return np.where(union > 0, inter / union, 0.0)
+
+
+def soft_nms_39(dets: np.ndarray, sigma: float = 0.5, nt: float = 0.5,
+                thresh: float = 0.001, method: int = 2) -> np.ndarray:
+    """Greedy soft-NMS on [N, 39] rows (bbox4 + score + 34 kps).
+
+    method: 0 = hard NMS, 1 = linear decay, 2 = gaussian decay (the default
+    for pose merging).  Returns the surviving rows (score > thresh) in pick
+    order; ``dets`` is not modified.
+    """
+    dets = dets.copy()
+    n = dets.shape[0]
+    keep = []
+    alive = np.ones(n, bool)
+    while alive.any():
+        idx = np.flatnonzero(alive)
+        best = idx[np.argmax(dets[idx, 4])]
+        if dets[best, 4] <= thresh:
+            break
+        keep.append(best)
+        alive[best] = False
+        rest = np.flatnonzero(alive)
+        if rest.size == 0:
+            break
+        ious = _iou_1_to_many(dets[best, :4], dets[rest, :4])
+        if method == 1:  # linear
+            decay = np.where(ious > nt, 1.0 - ious, 1.0)
+        elif method == 2:  # gaussian
+            decay = np.exp(-(ious * ious) / sigma)
+        else:  # hard
+            decay = (ious <= nt).astype(np.float64)
+        dets[rest, 4] *= decay
+        dead = rest[dets[rest, 4] <= thresh]
+        alive[dead] = False
+    return dets[keep]

@@ -1,0 +1,154 @@
+"""Evaluation CLI, counterpart of ``tools/evaluate.py --synthetic``.
+
+Runs the port's ``Detector`` over a synthetic val split, one image at a
+time (``Detector.run``: every scale, flip and the soft-NMS merge), and
+reports OKS keypoint AP:
+
+    python -m centerpose_tpu_torch.tools.evaluate --synthetic --hard \\
+        --synthetic-size 512 --synthetic-seed 3 [--device cpu] \\
+        [--json out.json] [KEY VALUE ...]
+
+Without ``--cfg`` the config is the flagship's (dla_34 @512, bfloat16,
+``pallas_full``), built in code; ``test.model_path`` defaults to the
+committed dla_34 snapshot.  Weights are read from ``.npz`` snapshots only.
+Evaluating COCO annotation files waits for the COCO reader.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from pathlib import Path
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from centerpose_tpu_torch.config import Config, flagship_config, load_config
+from centerpose_tpu_torch.data.synthetic import SyntheticEvalDataset
+from centerpose_tpu_torch.inference.detector import Detector
+from centerpose_tpu_torch.weights import state_dict_from_npz
+
+ROOT = Path(__file__).resolve().parents[2]
+SNAPSHOT = ROOT / "output" / "dla34_hard_artifact" / "params_f16.npz"
+STAGES = ("tot", "pre", "net", "post", "merge")
+
+
+def load_detector(cfg: Config, device: str = "cuda") -> Detector:
+    """The Detector with the weights of ``cfg.test.model_path`` (an
+    ``.npz`` snapshot; empty: the committed dla_34 snapshot)."""
+    path = cfg.test.model_path or str(SNAPSHOT)
+    if not path.endswith(".npz"):
+        raise ValueError(f"{path}: the port reads .npz weight snapshots only")
+    return Detector(cfg, state_dict_from_npz(path), device=device)
+
+
+def evaluate(detector: Detector, dataset: SyntheticEvalDataset,
+             limit: int = 0, progress: Optional[Callable[[int], None]] = None):
+    """``detector.run`` on each image of ``dataset`` (the first ``limit``
+    when given); returns (results by image id, summed stage times in
+    seconds, wall seconds)."""
+    n = min(len(dataset), limit) if limit else len(dataset)
+    times = dict.fromkeys(STAGES, 0.0)
+    results: Dict[int, Dict[int, np.ndarray]] = {}
+    t0 = time.perf_counter()
+    for k, (img_id, img) in enumerate(dataset.items()):
+        if k >= n:
+            break
+        ret = detector.run(img)
+        results[img_id] = ret["results"]
+        for key in STAGES:
+            times[key] += ret[key]
+        if progress:
+            progress(k + 1)
+    return results, times, time.perf_counter() - t0
+
+
+def print_progress(n: int, every: int = 50) -> Callable[[int], None]:
+    """A ``progress`` callback that prints ``[done/n]`` every ``every``
+    images."""
+    def progress(done: int) -> None:
+        if done % every == 0:
+            print(f"[{done}/{n}]", flush=True)
+    return progress
+
+
+def no_tf32() -> None:
+    """float32 rows compute in float32 on the card too: TF32 off in cuDNN
+    convolutions and matmuls (PyTorch lets cuDNN use it by default)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def device_name(device: str) -> str:
+    dev = torch.device(device)
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def payload(stats: Dict[str, float], n: int, times: Dict[str, float],
+            wall: float, cfg: Config, hard: bool, device: str) -> dict:
+    """The reference's result JSON: stats, throughput, ms per image per
+    stage; plus the device it ran on."""
+    return {
+        "stats": {k: round(float(v), 4) for k, v in stats.items()},
+        "n_images": n,
+        "wall_s": round(wall, 1),
+        "img_per_s": round(n / wall, 2),
+        "ms_per_img": {k: round(1000 * times[k] / n, 1) for k in times},
+        "hard": bool(hard),
+        "model_path": cfg.test.model_path or str(SNAPSHOT.relative_to(ROOT)),
+        "device": device_name(device),
+    }
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="centerpose_tpu_torch evaluation")
+    p.add_argument("--cfg", type=str, default=None,
+                   help="experiment yaml (default: the flagship, in code)")
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--synthetic-size", type=int, default=64)
+    p.add_argument("--synthetic-seed", type=int, default=2,
+                   help="scene seed (1: train scenes, 2: the AP-gating val "
+                        "split, 3: the hard benchmark)")
+    p.add_argument("--hard", action="store_true",
+                   help="hard synthetic distribution (non-saturating)")
+    p.add_argument("--limit", type=int, default=0, help="evaluate first N images")
+    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--json", type=str, default="",
+                   help="also write {stats, timing} to this path")
+    p.add_argument("opts", nargs="*")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    no_tf32()
+    if not args.synthetic:
+        raise SystemExit("only --synthetic is ported; reading COCO "
+                         "annotation files waits for the COCO reader")
+    cfg = (load_config(args.cfg, args.opts) if args.cfg
+           else flagship_config(args.opts))
+    dataset = SyntheticEvalDataset(args.synthetic_size,
+                                   seed=args.synthetic_seed, hard=args.hard)
+    detector = load_detector(cfg, args.device)
+    n = min(len(dataset), args.limit) if args.limit else len(dataset)
+    results, times, wall = evaluate(detector, dataset, n, print_progress(n))
+    stats = dataset.run_eval(results, img_ids=list(results))
+    print(f"\nimages: {n}  wall: {wall:.1f}s  ({n / wall:.2f} img/s, "
+          f"{device_name(args.device)})")
+    for k in STAGES:
+        print(f"  {k}: {1000 * times[k] / n:.1f} ms/img")
+    print("\nCOCO-protocol AP:")
+    for k, v in stats.items():
+        print(f"  {k:10s} {v:.4f}")
+    if args.json:
+        os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump(payload(stats, n, times, wall, cfg, args.hard,
+                              args.device), f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -6,8 +6,9 @@
 Run from the root of the repository on a machine with a CUDA card and
 ``nvcc``.  It drives ``centerpose_tpu_torch`` through its flagship paths,
 dla_34 at 512x512 in bfloat16 with the committed dla_34 snapshot
-(``output/dla34_hard_artifact/params_f16.npz``): serving and training.  It
-prints one flushed line per phase with the seconds it took:
+(``output/dla34_hard_artifact/params_f16.npz``): serving, training and
+evaluation.  It prints one flushed line per phase with the seconds it
+took:
 
 1. the card (``nvidia-smi``) and the build of the CUDA libraries (one
    ``nvcc`` per source, started together);
@@ -50,7 +51,16 @@ prints one flushed line per phase with the seconds it took:
    ``encode_example`` (train augmentation on) from synthetic frames: one
    warm-up step, 6 timed steps on fresh batches, then 10 steps on one fixed
    batch whose loss must fall; the launch counts of that run;
-9. training trace: one step under ``torch.profiler``.
+9. training trace: one step under ``torch.profiler``;
+10. evaluation, a main path: the hard benchmark's 512 seed-3 scenes drawn
+   by the port's renderer (``data/synthetic.render_scene_hard``, in 8
+   processes), the ``Detector`` (bf16, ``pallas_full``: K1) over every
+   scene at single scale, then with flip and scales 0.75, 1.0, 1.25
+   (soft-NMS merge), OKS AP by the port's evaluator: one line per mode
+   with AP, AP50, AP75, AR, images/s, the card and the K1 launches of that
+   mode; it fails unless each AP lies within 0.002 of the reference's
+   (``output/hard_eval.json``: ``cross_impl.pallas_full_bf16`` and
+   ``modes.ms_flip_nms``, both on the snapshot).
 
 Then it prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -116,6 +126,15 @@ TOL_TRAIN_LOSS = 1e-5
 TOL_TRAIN_STATS = 1e-4
 TOL_TRAIN_GRAD_L2 = 1e-3
 TRAIN_BATCH = 8  # bench.py's train_batch
+# Evaluation: the hard benchmark (512 scenes of seed 3), OKS AP of the
+# bf16 pallas_full Detector against the reference's AP on the same
+# snapshot, read from its results file at run time.  0.002 is ROADMAP's
+# main-path acceptance: the reference's own bf16 rows differ by 0.0008
+# (xla against pallas_full).
+EVAL_N = 512
+EVAL_RENDER_WORKERS = 8
+ANCHORS = ROOT / "output" / "hard_eval.json"
+TOL_AP = 0.002
 
 
 class SmokeFailure(RuntimeError):
@@ -342,14 +361,10 @@ def scene(seed: int, h: int = 480, w: int = 640):
 def flagship_cfg():
     """experiments/dla_34_512x512.yaml, built in code (no yaml needed),
     with its train block (Adam at 1.25e-4, compact wire) at batch 8."""
-    from centerpose_tpu_torch.config import default_config, update_config
+    from centerpose_tpu_torch.config import flagship_config, update_config
 
-    return update_config(default_config(), {
-        "model": {"name": "dla_34", "input_res": 512, "output_res": 128,
-                  "head_conv": 256, "dcn_impl": "pallas_full",
-                  "dcn_max_dy": 0, "compute_dtype": "bfloat16"},
-        "train": {"lr": 1.25e-4, "wire": "compact",
-                  "batch_size": TRAIN_BATCH}})
+    return update_config(flagship_config(),
+                         {"train": {"batch_size": TRAIN_BATCH}})
 
 
 def model_check(state_dict):
@@ -978,6 +993,87 @@ def train_trace(trainer, batch):
 
 
 
+def eval_anchors() -> dict:
+    """The reference's hard-benchmark AP of each evaluated mode, on the
+    committed snapshot: single scale is ``cross_impl.pallas_full_bf16``
+    (the flagship config); ``modes.ms_flip_nms`` adds flip and scales
+    0.75, 1.0, 1.25."""
+    ref = json.loads(ANCHORS.read_text())["flagship"]
+    check(ref["cross_impl"]["pallas_full_bf16"]["model_path"].endswith(
+        "params_f16.npz") and ref["modes"]["ms_flip_nms"][
+        "model_path"].endswith("params_f16.npz"), "anchors not on the npz")
+    return {"single": ref["cross_impl"]["pallas_full_bf16"]["stats"]["AP"],
+            "ms_flip_nms": ref["modes"]["ms_flip_nms"]["stats"]["AP"]}
+
+
+def evaluation(state_dict, card: str):
+    """The evaluation main path: the hard benchmark's 512 scenes drawn by
+    the port's renderer, the bf16 pallas_full Detector (K1) over them at
+    single scale and with flip and 3 scales (soft-NMS merge), OKS AP by the
+    port's evaluator against the reference's.  Returns the K1 launch
+    counts by site of each mode."""
+    import numpy as np
+    import torch
+
+    from centerpose_tpu_torch.config import flagship_config
+    from centerpose_tpu_torch.inference.detector import Detector
+    from centerpose_tpu_torch.ops import dcn_cuda as dc
+    from centerpose_tpu_torch.tools.evaluate import STAGES, evaluate
+    from centerpose_tpu_torch.tools.hard_eval import (CROSS_IMPL,
+                                                      FLAGSHIP_MODES,
+                                                      hard_dataset)
+
+    want = eval_anchors()
+    t0 = time.perf_counter()
+    ds = hard_dataset(EVAL_N, EVAL_RENDER_WORKERS)
+    t_render = time.perf_counter() - t0
+    n_gt = len(ds.gt_annotations())
+    say(f"  rendered {EVAL_N} hard scenes (seed 3, {n_gt} persons) in "
+        f"{t_render:.2f} s ({EVAL_RENDER_WORKERS} processes)")
+    modes = {"single": CROSS_IMPL["pallas_full_bf16"],
+             "ms_flip_nms": FLAGSHIP_MODES["ms_flip_nms"]}
+    launches = {}
+    for mode, opts in modes.items():
+        cfg = flagship_config(opts)
+        check(cfg.model.dcn_impl == "pallas_full"
+              and cfg.model.compute_dtype == "bfloat16", f"{mode} config")
+        det = Detector(cfg, state_dict, device="cuda")
+        det.run(ds.get_raw(0)[0])  # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        dc.reset_launch_counts()
+        results, times, wall = evaluate(det, ds)
+        launches[mode] = dict(dc.dcn_v2_fused.launches_by_site)
+        total = dc.dcn_v2_fused.launches
+        forwards = EVAL_N * len(cfg.test.test_scales)
+        check(total == 16 * dc.KERNELS_PER_CALL[torch.bfloat16] * forwards,
+              f"{mode}: K1 launches {total} for {forwards} forwards")
+        check(len(launches[mode]) == len(SITES),
+              f"{mode}: K1 launched at {len(launches[mode])} sites")
+        for img_id, res in results.items():
+            rows = res[1]
+            check(rows.ndim == 2 and rows.shape[1] == 39
+                  and 0 < rows.shape[0] <= cfg.test.topk
+                  and np.isfinite(rows).all(), f"{mode}: image {img_id} "
+                  f"results {rows.shape}")
+        t1 = time.perf_counter()
+        stats = ds.run_eval(results, img_ids=list(results))
+        t_eval = time.perf_counter() - t1
+        ms = " ".join(f"{k} {1e3 * times[k] / EVAL_N:.2f}" for k in STAGES)
+        say(f"  eval {mode}: AP {stats['AP']:.4f} AP50 {stats['AP50']:.4f} "
+            f"AP75 {stats['AP75']:.4f} AR {stats['AR']:.4f} (reference "
+            f"{want[mode]:.4f}, diff {stats['AP'] - want[mode]:+.4f}); "
+            f"{EVAL_N / wall:.2f} images/s (host clock, Detector.run, "
+            f"synchronised; ms per image: {ms}); OKS eval {t_eval:.2f} s; "
+            f"K1 launches {total}; {card}")
+        say(f"  eval {mode} stats: " + json.dumps(
+            {k: round(float(v), 6) for k, v in stats.items()}))
+        check(abs(stats["AP"] - want[mode]) <= TOL_AP,
+              f"{mode}: AP {stats['AP']:.4f} is not within {TOL_AP} of the "
+              f"reference's {want[mode]:.4f}")
+        del det
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1021,6 +1117,8 @@ def main() -> int:
     train_launches, trainer, fixed = phase("training (main path)",
                                            lambda: training(state_dict))
     phase("training trace", lambda: train_trace(trainer, fixed))
+    del trainer, fixed
+    phase("evaluation (main path)", lambda: evaluation(state_dict, card))
     for site, entry in entries.items():
         entry["launches"] = launches.get(site, 0)
         check(entry["launches"] > 0, f"K1 never launched at site {site}")

@@ -1,5 +1,6 @@
-"""Detector parity: the port's cv2-free pre-process and its device stage
-against the JAX Detector, with the dla_34 snapshot at 128x128."""
+"""Detector parity: the port's cv2-free pre-process (resize and warp), its
+device stage, the multi-scale merge and whole runs against the JAX
+Detector, with the dla_34 snapshot at 128x128."""
 
 import numpy as np
 import pytest
@@ -76,12 +77,104 @@ def test_run_end_to_end_matches_jax(weights):
 
 
 def test_unported_options_raise(weights):
-    _, sd = weights
-    with pytest.raises(NotImplementedError):
-        Detector(torch_cfg(128, test={"test_scales": (0.75, 1.0)}), sd,
-                 device="cpu")
     with pytest.raises(NotImplementedError):
         Detector(torch_cfg(128, name="res_18"), device="cpu")
+
+
+def test_multi_scale_and_nms_run(weights):
+    _, sd = weights
+    img = _images()[0]
+    for test in ({"test_scales": (0.75, 1.0)}, {"nms": True}):
+        td = Detector(torch_cfg(128, test=test), sd, device="cpu")
+        ret = td.run(img)
+        res = ret["results"][1]
+        assert res.dtype == np.float32 and res.shape[1] == 39
+        assert 0 < len(res) <= 100 and np.isfinite(res).all()
+        # soft-NMS drops rows at score <= 0.001 and returns them by score
+        assert (res[:, 4] > 0.001).all() and (np.diff(res[:, 4]) <= 0).all()
+        for key in ("tot", "pre", "net", "post", "merge"):
+            assert ret[key] >= 0
+
+
+@pytest.mark.parametrize("scale", [0.75, 1.25])
+def test_resize_linear_matches_cv2(scale):
+    import cv2
+    import torch
+
+    from centerpose_tpu_torch.data.synthetic import render_scene_hard
+    from centerpose_tpu_torch.ops.image import resize_linear
+
+    # the scale ladder's sizes of a 640x480 scene, and of odd sizes; cv2's
+    # uint8 path is 11-bit fixed point, which the port follows exactly
+    imgs = [render_scene_hard(np.random.default_rng(0))[0], *_images()]
+    for img in imgs:
+        h, w = img.shape[:2]
+        size = (int(w * scale), int(h * scale))
+        got = resize_linear(torch.from_numpy(img), size)
+        assert got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(), cv2.resize(img, size))
+        t = torch.from_numpy(img)
+        assert resize_linear(t, (w, h)) is t  # scale 1.0: no resampling
+
+
+def _per_scale_rows(seed, n_scales=3):
+    """Detections of one image as post_process gives them per scale:
+    [100, 39] float32, boxes around shared people (duplicates across
+    scales), joints inside."""
+    rng = np.random.default_rng(seed)
+    people = rng.uniform(50, 550, (6, 2))
+    out = []
+    for _ in range(n_scales):
+        c = people[rng.integers(0, 6, 100)] + rng.normal(0, 6, (100, 2))
+        wh = rng.uniform(10, 150, (100, 2))
+        rows = np.concatenate([c - wh / 2, c + wh / 2,
+                               rng.uniform(0, 0.9, (100, 1)),
+                               rng.uniform(0, 600, (100, 34))], 1)
+        out.append({1: rows.astype(np.float32)})
+    return out
+
+
+@pytest.mark.parametrize("test", [{}, {"nms": True},
+                                  {"test_scales": (0.75, 1.0, 1.25)}])
+def test_merge_outputs_matches_reference(weights, monkeypatch, test):
+    from centerpose_tpu.inference import detector as ref_detector
+    from centerpose_tpu.ops.soft_nms import soft_nms_39_numpy
+
+    jd, td = _pair(weights, **test)
+    n = len(td.cfg.test.test_scales)
+    for seed in range(4):
+        dets = _per_scale_rows(seed, n)
+        dispatched = jd.merge_outputs([{1: d[1].copy()} for d in dets])[1]
+        got = td.merge_outputs([{1: d[1].copy()} for d in dets])[1]
+        # the reference's soft-NMS may take its C++ core (an f32 ulp of a
+        # score away); against its numpy body the merge is bit-equal
+        np.testing.assert_allclose(got, dispatched, rtol=0, atol=1e-6)
+        with monkeypatch.context() as m:
+            m.setattr(ref_detector, "soft_nms_39", soft_nms_39_numpy)
+            want = jd.merge_outputs([{1: d[1].copy()} for d in dets])[1]
+        assert got.dtype == want.dtype == np.float32
+        assert np.array_equal(got, want)
+        assert 0 < len(got) <= 100
+
+
+def _hard_scenes(n):
+    from centerpose_tpu_torch.data.synthetic import SyntheticEvalDataset
+
+    return [img for _, img in SyntheticEvalDataset(n, seed=3,
+                                                   hard=True).items()]
+
+
+def test_run_flip_multi_scale_matches_jax(weights):
+    jd, td = _pair(weights, flip_test=True, test_scales=(0.75, 1.0, 1.25))
+    for img in _hard_scenes(4):
+        ret = td.run(img)
+        got, want = ret["results"][1], jd.run(img)["results"][1]
+        # f32 model on both sides, the same inputs (the resize bit-equal,
+        # the warp equal at these sizes): the end-to-end tolerances of
+        # test_run_end_to_end_matches_jax
+        assert got.shape == want.shape and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-2)
+        assert ret["merge"] > 0
 
 
 def test_detector_keeps_dcn_operands_contiguous(weights):

@@ -1,6 +1,6 @@
 """The port stands alone: no JAX, flax, optax, reference package, cv2 or
-yaml on its main paths (inference and training); CUDA is never replaced
-quietly by the CPU."""
+yaml on its main paths (inference, training and evaluation); CUDA is never
+replaced quietly by the CPU."""
 
 import re
 import subprocess
@@ -36,6 +36,16 @@ images, meta = det.pre_process(img)
 dets = det.run_batch(images.numpy())
 assert dets.shape == (1, 100, 40), dets.shape
 assert np.isfinite(dets).all()
+# the evaluation slice: a hard benchmark scene drawn without cv2, the
+# flip + multi-scale run (resize on the device, soft-NMS merge), OKS AP
+from centerpose_tpu_torch.data.synthetic import SyntheticEvalDataset
+ds = SyntheticEvalDataset(1, seed=3, hard=True)
+ms = update_config(cfg, {"test": {"flip_test": True,
+                                  "test_scales": (0.75, 1.0, 1.25)}})
+ret = Detector(ms, state_dict_from_npz(sys.argv[1]), device="cpu").run(
+    ds.get_raw(0)[0])
+stats = ds.run_eval({0: ret["results"]})
+assert 0.0 <= stats["AP"] <= 1.0 and ret["merge"] > 0, stats
 # the training slice: encode (train augmentation), losses, one step
 from centerpose_tpu_torch.data.encode import encode_example, stack_batch
 from centerpose_tpu_torch.data.synthetic import make_person
