@@ -1010,8 +1010,8 @@ def evaluation(state_dict, card: str):
     """The evaluation main path: the hard benchmark's 512 scenes drawn by
     the port's renderer, the bf16 pallas_full Detector (K1) over them at
     single scale and with flip and 3 scales (soft-NMS merge), OKS AP by the
-    port's evaluator against the reference's.  Returns the K1 launch
-    counts by site of each mode."""
+    port's evaluator against the reference's; K1 must launch at every site
+    in each mode."""
     import numpy as np
     import torch
 
@@ -1032,7 +1032,6 @@ def evaluation(state_dict, card: str):
         f"{t_render:.2f} s ({EVAL_RENDER_WORKERS} processes)")
     modes = {"single": CROSS_IMPL["pallas_full_bf16"],
              "ms_flip_nms": FLAGSHIP_MODES["ms_flip_nms"]}
-    launches = {}
     for mode, opts in modes.items():
         cfg = flagship_config(opts)
         check(cfg.model.dcn_impl == "pallas_full"
@@ -1042,13 +1041,13 @@ def evaluation(state_dict, card: str):
         torch.cuda.synchronize()
         dc.reset_launch_counts()
         results, times, wall = evaluate(det, ds)
-        launches[mode] = dict(dc.dcn_v2_fused.launches_by_site)
+        sites = dict(dc.dcn_v2_fused.launches_by_site)
         total = dc.dcn_v2_fused.launches
         forwards = EVAL_N * len(cfg.test.test_scales)
         check(total == 16 * dc.KERNELS_PER_CALL[torch.bfloat16] * forwards,
               f"{mode}: K1 launches {total} for {forwards} forwards")
-        check(len(launches[mode]) == len(SITES),
-              f"{mode}: K1 launched at {len(launches[mode])} sites")
+        check(len(sites) == len(SITES),
+              f"{mode}: K1 launched at {len(sites)} sites")
         for img_id, res in results.items():
             rows = res[1]
             check(rows.ndim == 2 and rows.shape[1] == 39
@@ -1071,7 +1070,6 @@ def evaluation(state_dict, card: str):
               f"{mode}: AP {stats['AP']:.4f} is not within {TOL_AP} of the "
               f"reference's {want[mode]:.4f}")
         del det
-    return launches
 
 
 def main() -> int:
