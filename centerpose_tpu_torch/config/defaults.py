@@ -43,8 +43,10 @@ class ModelConfig:
     # defaults (ops/dcn_cuda.DEFAULT_MAX_DY); a positive value forces that
     # radius (lowered to the row-major cap where the reference lowers it).
     dcn_max_dy: int = 0
-    # Layout/fusion switches of the reference's TPU kernels.  Neither
-    # changes the function a site computes; the port reads neither.
+    # Layout/fusion switches of the reference's TPU kernels; the port reads
+    # neither.  The layout one changes nothing; the port's eval sites take
+    # the om-fused kernel where the reference does with dcn_fused_om on
+    # (the default: ops/dcn_cuda.site_om_fused).
     dcn_fused_om: bool = True
     dcn_chsec: bool = True
 

@@ -1,7 +1,6 @@
 """Ground-truth target encoder for multi-person pose (host-side numpy).
 
-Counterpart of ``centerpose_tpu/data/encode.py`` (its numpy path; the
-native C++ encoder is not ported yet).  Per image it produces the
+Counterpart of ``centerpose_tpu/data/encode.py``.  Per image it produces the
 supervision dict the train step consumes: random scale/shift/flip/colour
 augmentation, the affine warp to ``input_res``, and the stride-4 targets
 (center gaussian ``hm``, joint gaussians ``hm_hp`` with the CornerNet
@@ -9,7 +8,10 @@ radius at min_overlap 0.7, ``wh``/``reg``/``hps``/``hp_offset`` at sparse
 ``ind``/``hp_ind`` with their masks; ``max_objs`` objects).  Images and
 heatmaps are HWC; randomness flows through an explicit
 ``np.random.Generator``.  Given the same generator stream every target is
-bit-equal to the JAX package's.
+bit-equal to the JAX package's.  As there, the per-object fill loop runs in
+C++ (``native/encoder.cpp``) when the native library is available and
+``loss.dense_hp`` is off; the Python loop is the fallback and the
+behavioural reference.
 
 The one difference is the image warp: the JAX package calls
 ``cv2.warpAffine`` (bilinear in 1/32-pixel fixed point), the port
@@ -27,6 +29,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from centerpose_tpu_torch import native
 from centerpose_tpu_torch.ops.image import (
     COLOR_AUG_IDENTITY,
     FLIP_IDX,
@@ -148,6 +151,17 @@ def encode_example(
 
     num_objs = min(len(anns), max_objs)
 
+    # the geometry vectorised here, the per-object loop in C++; the Python
+    # loop below is the fallback (and handles dense_hp)
+    if num_objs > 0 and not cfg.loss.dense_hp and _try_native_encode(
+        anns, num_objs, num_joints, out_res, width, flipped, rot,
+        trans_out, trans_out_rot,
+        dict(hm=hm, hm_hp=hm_hp, wh=wh, hps=hps, reg=reg, ind=ind,
+             reg_mask=reg_mask, hps_mask=hps_mask, hp_offset=hp_offset,
+             hp_ind=hp_ind, hp_mask=hp_mask),
+    ):
+        num_objs = 0  # filled natively: skip the Python loop
+
     for k in range(num_objs):
         ann = anns[k]
         x, y, w, h = [float(v) for v in ann["bbox"]]
@@ -244,6 +258,34 @@ def encode_example(
     }
     ret.update(dense)
     return ret
+
+
+def _try_native_encode(anns, num_objs, num_joints, out_res, width, flipped,
+                       rot, trans_out, trans_out_rot, out) -> bool:
+    """Vectorise the per-object geometry and hand the fill loop to C++.
+    Returns False, with ``out`` untouched, when the native library is
+    unavailable."""
+    if not native.available():
+        return False
+    bboxes = np.zeros((num_objs, 4), np.float32)
+    pts = np.zeros((num_objs, num_joints, 3), np.float32)
+    for k in range(num_objs):
+        x, y, w, h = [float(v) for v in anns[k]["bbox"]]
+        bboxes[k] = (x, y, x + w, y + h)
+        pts[k] = np.array(anns[k]["keypoints"], np.float32).reshape(num_joints, 3)
+    if flipped:
+        bboxes[:, [0, 2]] = width - bboxes[:, [2, 0]] - 1
+        pts[:, :, 0] = width - pts[:, :, 0] - 1
+        for a, b in FLIP_IDX:
+            pts[:, [a, b]] = pts[:, [b, a]]
+    corners = affine_transform_batch(bboxes.reshape(-1, 2), trans_out)
+    bboxes_t = np.clip(corners.reshape(num_objs, 4), 0, out_res - 1)
+    joints_t = affine_transform_batch(
+        pts[:, :, :2].reshape(-1, 2), trans_out_rot
+    ).reshape(num_objs, num_joints, 2)
+    vis = (pts[:, :, 2] > 0).astype(np.int32)
+    return native.encode_targets_native(bboxes_t, joints_t, vis, out_res,
+                                        rot != 0, out)
 
 
 def _draw_dense_hp(dense_hps, dense_mask, j, ct_int, value, radius):

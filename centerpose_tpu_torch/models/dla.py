@@ -8,16 +8,19 @@ aggregation where every projection and node is DCNv2 (3x3) + BN + ReLU, and
 the stride-4 map.
 
 Inside the model tensors are NCHW in ``channels_last`` memory, so the NHWC
-DCN op takes them with a permute and no copy.  In eval mode every DCN site
-runs the om-fused ``ops/dcn_cuda.dcn_v2_fused`` (K1) at the clamp radius
-the reference's inference policy gives the site (``site_max_dy``).  In
-train mode, as the reference with ``train=True``, it runs the offset/mask
-conv as a conv in the compute dtype and then ``ops/dcn_cuda.dcn_v2`` (K2,
-whose gradient is the backward kernel) at the training radius
-(``train_site_max_dy``); both backwards pass the clamp's gradient at
-exactly +-R that the reference's backward dispatch gives the site
-(``train_site_edge_grad``).  Each is the CUDA kernel for a CUDA tensor and
-its plain version for a CPU tensor.  At 512x512 the 16 calls of one
+DCN op takes them with a permute and no copy.  In eval mode a DCN site
+runs the om-fused ``ops/dcn_cuda.dcn_v2_fused`` (K1) where the reference
+runs its om-fused kernel (``site_om_fused``: ``pallas``/``pallas_full``
+inside the fused envelope, all 7 sites at 512x512), at the clamp radius the
+reference's inference policy gives the site (``site_max_dy``).  Elsewhere
+(every site under ``dcn_impl: xla``), and in train mode as the reference
+with ``train=True``, it runs the offset/mask conv as a conv in the compute
+dtype, rounded where the reference's compiled site rounds it, and then
+``ops/dcn_cuda.dcn_v2`` (K2, whose gradient is the backward kernel) at the
+training radius (``train_site_max_dy``); both backwards pass the clamp's
+gradient at exactly +-R that the reference's backward dispatch gives the
+site (``train_site_edge_grad``).  Each is the CUDA kernel for a CUDA tensor
+and its plain version for a CPU tensor.  At 512x512 the 16 calls of one
 forward go over 7 site shapes.
 """
 
@@ -32,7 +35,7 @@ import torch.nn.functional as F
 
 from centerpose_tpu_torch.models.common import BatchNorm2d, ConvBN, HeadStack
 from centerpose_tpu_torch.ops.dcn_cuda import (dcn_v2, dcn_v2_fused,
-                                               site_max_dy,
+                                               site_max_dy, site_om_fused,
                                                train_site_edge_grad,
                                                train_site_max_dy)
 
@@ -46,6 +49,17 @@ class _OffsetMaskParams(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(3, 3, in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
+
+
+def _sigmoid(z: torch.Tensor, training: bool) -> torch.Tensor:
+    """The mask's sigmoid.  At inference, ``1 / (1 + exp(-z))`` one op at a
+    time, so that a bf16 ``z`` is rounded after the exp and after the add
+    as XLA rounds ``jax.nn.sigmoid`` in the reference's compiled site; in
+    training ``torch.sigmoid`` (one rounding, and a gradient that stays
+    finite where exp(-z) overflows)."""
+    if training:
+        return torch.sigmoid(z)
+    return torch.reciprocal(torch.exp(-z) + 1)
 
 
 class DCN(nn.Module):
@@ -77,18 +91,19 @@ class DCN(nn.Module):
         omb = self.conv_offset_mask.bias.to(dt)
         weight = self.weight.to(dt)
         xn = x.permute(0, 2, 3, 1).contiguous()
-        if not self.training:
+        if not self.training and site_om_fused(*site):
             y = dcn_v2_fused(xn, omw, omb, weight, self.bias,
                              site_max_dy(*site), train_site_edge_grad(*site))
             return y.permute(0, 3, 1, 2)
-        # the reference's train path: the om conv, rounded to the compute
-        # dtype, then its bias in that dtype; offsets and the sigmoid-ed
-        # mask stay in the compute dtype
+        # the reference's explicit path (training, and inference outside
+        # the om-fused kernel): the om conv, rounded to the compute dtype,
+        # then its bias in that dtype; offsets and the sigmoid-ed mask stay
+        # in the compute dtype
         om = F.conv2d(x, omw.permute(3, 2, 0, 1), padding=1)
         om = om + omb.view(1, -1, 1, 1)
         om = om.permute(0, 2, 3, 1)
         offset = om[..., :18].contiguous()
-        mask = torch.sigmoid(om[..., 18:]).contiguous()
+        mask = _sigmoid(om[..., 18:], self.training).contiguous()
         y = dcn_v2(xn, offset, mask, weight, self.bias,
                    train_site_max_dy(*site), train_site_edge_grad(*site))
         return y.permute(0, 3, 1, 2)

@@ -61,10 +61,12 @@ def clamp_dy(offset: torch.Tensor, max_dy: Optional[float],
 def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
            weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
            max_dy: Optional[float] = None,
-           edge_grad: float = 1.0) -> torch.Tensor:
+           edge_grad: float = 1.0,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x [B,H,W,Cin], offset [B,H,W,18], mask [B,H,W,9], weight
-    [3,3,Cin,Cout] -> [B,H,W,Cout].  ``max_dy`` clips dy before sampling;
-    ``edge_grad`` is the clip's gradient at exactly +-max_dy."""
+    [3,3,Cin,Cout] -> [B,H,W,Cout] in ``out_dtype`` (default x's).
+    ``max_dy`` clips dy before sampling; ``edge_grad`` is the clip's
+    gradient at exactly +-max_dy."""
     b, h, w, cin = x.shape
     kh, kw, wcin, cout = weight.shape
     if (kh, kw) != (3, 3) or wcin != cin:
@@ -104,7 +106,7 @@ def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     out = cols @ weight.to(f32).reshape(9 * cin, cout)
     if bias is not None:
         out = out + bias.to(f32)
-    return out.reshape(b, h, w, cout).to(x.dtype)
+    return out.reshape(b, h, w, cout).to(out_dtype or x.dtype)
 
 
 def dcn_v2_backward_plain(x: torch.Tensor, offset: torch.Tensor,

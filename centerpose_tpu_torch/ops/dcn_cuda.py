@@ -319,6 +319,21 @@ def site_max_dy(h: int, w: int, cin: int, cout: int, dcn_impl: str,
 
 
 @functools.lru_cache(maxsize=None)
+def site_om_fused(h: int, w: int, cin: int, cout: int, dcn_impl: str,
+                  max_dy: int = 0) -> bool:
+    """True where the reference's ``models/dla.py: DCN`` takes the site
+    through its om-fused kernel at inference: under ``pallas`` or
+    ``pallas_full`` and inside ``fused_om_supported``'s envelope.  Every
+    other site computes the offset/mask conv in the compute dtype and then
+    the DCN from explicit offsets, as in training."""
+    if dcn_impl in ("xla", "xla_patch"):
+        return False
+    if dcn_impl not in ("pallas", "pallas_full"):
+        raise NotImplementedError(f"dcn_impl={dcn_impl!r} is not ported")
+    return fused_om_supported(h, w, cin, cout, max_dy=max_dy)
+
+
+@functools.lru_cache(maxsize=None)
 def train_site_max_dy(h: int, w: int, cin: int, cout: int, dcn_impl: str,
                       max_dy: int = 0) -> Optional[int]:
     """The y-clamp radius a DCN site computes with in training, as the

@@ -1,13 +1,18 @@
-"""Soft-NMS over 39-dim pose detections, counterpart of the numpy body of
-``centerpose_tpu/ops/soft_nms.py``.
+"""Soft-NMS over 39-dim pose detections, counterpart of
+``centerpose_tpu/ops/soft_nms.py``'s ``soft_nms_39``.
 
 Greedy pick-max with hard, linear or Gaussian score decay, on the host: it
 runs only at merge time of multi-scale testing, on at most K x scales rows.
+``soft_nms_39`` dispatches to the C++ core (``native/soft_nms.cpp``) when
+the native library is available; ``soft_nms_39_numpy`` is the fallback and
+the behavioural reference.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from centerpose_tpu_torch.native import soft_nms_39_native
 
 
 def _iou_1_to_many(box: np.ndarray, boxes: np.ndarray) -> np.ndarray:
@@ -33,8 +38,17 @@ def soft_nms_39(dets: np.ndarray, sigma: float = 0.5, nt: float = 0.5,
 
     method: 0 = hard NMS, 1 = linear decay, 2 = gaussian decay (the default
     for pose merging).  Returns the surviving rows (score > thresh) in pick
-    order; ``dets`` is not modified.
+    order, as float32 from the C++ core; ``dets`` is not modified.
     """
+    out = soft_nms_39_native(dets, sigma, nt, thresh, method)
+    if out is not None:
+        return out
+    return soft_nms_39_numpy(dets, sigma, nt, thresh, method)
+
+
+def soft_nms_39_numpy(dets: np.ndarray, sigma: float = 0.5, nt: float = 0.5,
+                      thresh: float = 0.001, method: int = 2) -> np.ndarray:
+    """The numpy body of ``soft_nms_39`` (the fallback)."""
     dets = dets.copy()
     n = dets.shape[0]
     keep = []

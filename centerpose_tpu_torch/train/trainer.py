@@ -12,7 +12,8 @@ Counterpart of ``centerpose_tpu/train/trainer.py`` on one device:
   (the mean of k micro-batch gradients, one update every k calls; the
   schedule counts updates);
 - ``Trainer``: the train state (dla_34 in float32 master parameters, the
-  compute dtype cast at use, optional snapshot weights), ``train_step``
+  compute dtype cast at use, optional snapshot weights; ``state`` and
+  ``load_state`` for checkpoints), ``train_step``
   (``make_train_step``: forward in train mode, ``multi_pose_loss``,
   backward, update; BatchNorm statistics advance on every call) and
   ``eval_step`` (``make_eval_step``: running statistics, no update).
@@ -41,10 +42,12 @@ _GRAY = (0.299, 0.587, 0.114)
 
 def batch_to_device(batch: Mapping[str, np.ndarray],
                     device: torch.device) -> Dict[str, torch.Tensor]:
-    """A stacked numpy batch (``data/encode.stack_batch``) as tensors on
+    """A stacked batch (``data/encode.stack_batch``'s numpy arrays, or
+    tensors, e.g. from ``data/loader.prefetch_to_device``) as tensors on
     ``device``, without the meta keys; dtypes unchanged."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-                device, non_blocking=True)
+    return {k: (v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(v))).to(
+                    device, non_blocking=True)
             for k, v in batch.items() if k not in _META_KEYS}
 
 
@@ -115,7 +118,7 @@ class Optimizer:
                                        momentum=0.9)
         else:
             raise ValueError(f"unknown optimizer {name}")
-        self.updates = 0  # applied updates (optax's inner count)
+        self.updates = 0  # applied updates: the schedule's position
         self.mini_step = 0  # micro-batches accumulated since the last one
 
     def step(self) -> bool:
@@ -135,6 +138,30 @@ class Optimizer:
         self.mini_step = 0
         return True
 
+    def state_shapes(self, p: torch.Tensor) -> Dict[str, tuple]:
+        """The names and shapes of the state torch's optimizer keeps for
+        parameter ``p`` once it has stepped."""
+        if isinstance(self.opt, torch.optim.Adam):
+            return {"step": (), "exp_avg": tuple(p.shape),
+                    "exp_avg_sq": tuple(p.shape)}
+        return {"momentum_buffer": tuple(p.shape)}
+
+    def state_dict(self) -> dict:
+        """The optimizer's state: torch's (Adam's moments and step counts,
+        or SGD's momentum), the schedule's position and, mid-accumulation,
+        the gradients summed so far."""
+        acc = [p.grad for p in self.params] if self.mini_step else None
+        return {"opt": self.opt.state_dict(), "updates": self.updates,
+                "mini_step": self.mini_step, "acc_grads": acc}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.opt.load_state_dict(sd["opt"])
+        self.updates = int(sd["updates"])
+        self.mini_step = int(sd["mini_step"])
+        acc = sd["acc_grads"] or [None] * len(self.params)
+        for p, g in zip(self.params, acc):
+            p.grad = None if g is None else g.to(p.device, p.dtype).clone()
+
 
 class Trainer:
     """The train state of one model on one device and its two steps.
@@ -142,7 +169,10 @@ class Trainer:
     ``cfg`` names the model and the training knobs; ``state_dict`` (from
     ``weights.state_dict_from_npz``) sets the starting weights, else the
     modules' own random init, seeded from ``cfg.train.seed`` on a forked
-    RNG (the process's RNG is left as it was)."""
+    RNG (the process's RNG is left as it was).  ``step`` counts
+    ``train_step`` calls; ``state()`` and ``load_state()`` carry the whole
+    train state (step, parameters, BatchNorm statistics, optimizer and
+    schedule) for checkpoints (``train/checkpoints.py``)."""
 
     def __init__(self, cfg, state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  device: str | torch.device = "cuda",
@@ -158,6 +188,30 @@ class Trainer:
             to_channels_last(model.to(self.device)), model_dtype(cfg)).train()
         self.optimizer = Optimizer(self.model.parameters(), cfg,
                                    steps_per_epoch)
+        self.step = 0
+
+    def state(self) -> dict:
+        """The train state as live tensors: ``step``, ``model`` (the float32
+        master parameters by name), ``bn`` (the buffers by name: BatchNorm's
+        statistics and counters, the fixed upsample kernels) and
+        ``optimizer`` (``Optimizer.state_dict``)."""
+        return {"step": self.step,
+                "model": dict(self.model.named_parameters()),
+                "bn": dict(self.model.named_buffers()),
+                "optimizer": self.optimizer.state_dict()}
+
+    @torch.no_grad()
+    def load_state(self, state: Mapping) -> None:
+        """Set the train state from ``state()``'s layout (tensors on any
+        device); shapes must match (``checkpoints.restore_state`` checks
+        them first)."""
+        for group in ("model", "bn"):
+            live = (dict(self.model.named_parameters()) if group == "model"
+                    else dict(self.model.named_buffers()))
+            for name, t in live.items():
+                t.copy_(state[group][name])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
 
     def _loss(self, batch: Mapping[str, np.ndarray]):
         b = unpack_batch(batch_to_device(batch, self.device), self.cfg)
@@ -179,6 +233,7 @@ class Trainer:
         detached device scalars (read them with ``float``)."""
         stats = self.backward(batch)
         self.optimizer.step()
+        self.step += 1
         return stats
 
     @torch.no_grad()

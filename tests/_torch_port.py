@@ -72,3 +72,21 @@ def rel_err(a, b) -> float:
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+def bit_equal(a, b) -> bool:
+    """Nested states (dicts, lists, tensors, numbers) equal bit for bit:
+    each tensor's dtype, shape and bytes."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(
+                    a.reshape(-1).contiguous().view(torch.uint8),
+                    b.reshape(-1).contiguous().view(torch.uint8)))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(bit_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(bit_equal, a, b))
+    return a == b

@@ -137,23 +137,34 @@ def _per_scale_rows(seed, n_scales=3):
 @pytest.mark.parametrize("test", [{}, {"nms": True},
                                   {"test_scales": (0.75, 1.0, 1.25)}])
 def test_merge_outputs_matches_reference(weights, monkeypatch, test):
+    from centerpose_tpu import native as ref_native
     from centerpose_tpu.inference import detector as ref_detector
     from centerpose_tpu.ops.soft_nms import soft_nms_39_numpy
+    from centerpose_tpu_torch import native
+    from centerpose_tpu_torch.inference import detector as port_detector
+    from centerpose_tpu_torch.ops.soft_nms import (
+        soft_nms_39_numpy as port_soft_nms_39_numpy)
 
     jd, td = _pair(weights, **test)
     n = len(td.cfg.test.test_scales)
+    both_native = native.available() and ref_native.available()
     for seed in range(4):
         dets = _per_scale_rows(seed, n)
         dispatched = jd.merge_outputs([{1: d[1].copy()} for d in dets])[1]
         got = td.merge_outputs([{1: d[1].copy()} for d in dets])[1]
-        # the reference's soft-NMS may take its C++ core (an f32 ulp of a
-        # score away); against its numpy body the merge is bit-equal
+        # both soft-NMS take the same C++ core when it is built (the numpy
+        # body is an f32 ulp of a score away from it)
+        if both_native:
+            assert np.array_equal(got, dispatched)
         np.testing.assert_allclose(got, dispatched, rtol=0, atol=1e-6)
+        # on the two numpy bodies the merge is bit-equal
         with monkeypatch.context() as m:
             m.setattr(ref_detector, "soft_nms_39", soft_nms_39_numpy)
+            m.setattr(port_detector, "soft_nms_39", port_soft_nms_39_numpy)
             want = jd.merge_outputs([{1: d[1].copy()} for d in dets])[1]
-        assert got.dtype == want.dtype == np.float32
-        assert np.array_equal(got, want)
+            got_numpy = td.merge_outputs([{1: d[1].copy()} for d in dets])[1]
+        assert got.dtype == got_numpy.dtype == want.dtype == np.float32
+        assert np.array_equal(got_numpy, want)
         assert 0 < len(got) <= 100
 
 

@@ -1,6 +1,6 @@
 """The port stands alone: no JAX, flax, optax, reference package, cv2 or
-yaml on its main paths (inference, training and evaluation); CUDA is never
-replaced quietly by the CPU."""
+yaml on its main paths (inference, training, evaluation and the training
+CLI); CUDA is never replaced quietly by the CPU."""
 
 import re
 import subprocess
@@ -59,6 +59,20 @@ batch = stack_batch([encode_example(img, [make_person(rng, 160, 120)[0]],
 trainer = Trainer(tcfg, state_dict_from_npz(sys.argv[1]), device="cpu")
 stats = trainer.train_step(batch)
 assert np.isfinite(float(stats["loss"])) and trainer.optimizer.updates == 1
+# the training CLI: the loader, checkpoints, the native core (its
+# validation and AP pass run in tests/test_torch_train_cli.py)
+import tempfile
+sys.modules["torch.utils.tensorboard"] = None  # optional; slow to import
+from centerpose_tpu_torch import native
+from centerpose_tpu_torch.tools import train as train_cli
+with tempfile.TemporaryDirectory() as tmp:
+    run = train_cli.main([
+        "--synthetic", "--synthetic-size", "2", "--device", "cpu",
+        "model.input_res", "64", "model.output_res", "16",
+        "train.batch_size", "2", "train.num_workers", "0", "train.epochs", "1",
+        "train.val_intervals", "0", "output_dir", tmp])
+assert run["trainer"].step == 1 and np.isfinite(run["first_loss"])
+native.available()
 bad = [m for m in ("jax", "flax", "optax", "cv2", "yaml", "centerpose_tpu")
        if sys.modules.get(m) is not None]
 assert not bad, bad

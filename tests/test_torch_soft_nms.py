@@ -1,15 +1,18 @@
-"""The port's soft-NMS against the JAX package's: bit-equal to its numpy
-body for hard, linear and Gaussian decay, and within 1e-6 of its
-dispatching ``soft_nms_39`` (which takes the C++ core when it is built:
-the two keep the same rows in the same order and differ by an f32 ulp of
-a score)."""
+"""The port's soft-NMS against the JAX package's: its numpy body bit-equal
+to the reference's for hard, linear and Gaussian decay, and its
+dispatching ``soft_nms_39`` (the C++ core when it is built) bit-equal to
+the reference's dispatching one where both take the core, within 1e-6
+otherwise (the core and the numpy body keep the same rows in the same
+order and differ by an f32 ulp of a score)."""
 
 import numpy as np
 import pytest
 
+from centerpose_tpu import native as ref_native
 from centerpose_tpu.ops.soft_nms import soft_nms_39 as ref_dispatch
 from centerpose_tpu.ops.soft_nms import soft_nms_39_numpy as ref_numpy
-from centerpose_tpu_torch.ops.soft_nms import soft_nms_39
+from centerpose_tpu_torch import native
+from centerpose_tpu_torch.ops.soft_nms import soft_nms_39, soft_nms_39_numpy
 
 
 def _dets(seed, n=300):
@@ -34,18 +37,21 @@ def test_soft_nms_bit_equal_to_reference_numpy(method):
         d = _dets(seed)
         for nt, sigma, thresh in ((0.5, 0.5, 0.001), (0.3, 0.25, 0.05)):
             want = ref_numpy(d, sigma, nt, thresh, method)
-            got = soft_nms_39(d, sigma, nt, thresh, method)
+            got = soft_nms_39_numpy(d, sigma, nt, thresh, method)
             assert got.dtype == want.dtype and got.shape == want.shape
             assert np.array_equal(got, want), (seed, method, nt)
 
 
 def test_soft_nms_within_1e6_of_reference_dispatch():
+    both_native = native.available() and ref_native.available()
     for seed in range(20):
         d = _dets(100 + seed)
         want = ref_dispatch(d.copy(), nt=0.5, method=2)
         got = soft_nms_39(d, nt=0.5, method=2)
         assert got.shape == want.shape
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+        if both_native:
+            assert np.array_equal(got, want)
 
 
 def test_soft_nms_leaves_its_input_and_handles_empty():
