@@ -10,7 +10,9 @@ Compute dtype, as the reference's per-module ``dtype``: every module casts
 its weights to the dtype of the activations it is given, at use.  Training
 keeps float32 master parameters (``set_compute_dtype``); inference may cast
 them once (``to_compute_dtype``), after which the per-use cast is free.
-BatchNorm parameters and statistics stay float32 either way.
+BatchNorm parameters and statistics stay float32 either way.  In eval
+mode a bf16 model hands each BatchNorm its conv's f32 result, as the
+reference's compiled graph does (``conv_bn``).
 
 BatchNorm: torch momentum 0.1 is flax momentum 0.9; eps is 1e-5.  In train
 mode the port's ``BatchNorm2d`` follows flax, not torch: one pair of batch
@@ -21,8 +23,10 @@ n/(n-1) larger, and normalise with its own variance formula).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -92,21 +96,133 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+@contextlib.contextmanager
+def tf32_convs(x: torch.Tensor):
+    """cuDNN may use TF32 in the convolutions run inside where ``x``, the
+    values they read, is a bf16 tensor on a CUDA device (nothing changes
+    elsewhere: a float32 model keeps the caller's setting, off in the
+    tools); the caller's setting is restored on leaving.  TF32 reads bf16
+    values exactly (8 significand bits of its 11) and its products are
+    exact; its tensor-core sums are f32 sums in another order and rounding
+    than FFMA's, which the bf16 rows' AP feels as it feels any summation
+    order.  With TF32 off the serving batch's device time doubled on an
+    H100 (PERF.md, section 6)."""
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        yield
+        return
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def conv_bn(conv: nn.Module, bn: nn.BatchNorm2d,
+            x: torch.Tensor) -> torch.Tensor:
+    """``bn(conv(x))`` for a bias-free ``Conv2d`` or ``ConvTranspose2d``.
+
+    Eval mode with a bf16 input computes what the reference's compiled
+    graph computes: the conv's f32 result reaches BatchNorm unrounded.
+    Flax's bf16 conv returns bf16 and its BatchNorm promotes that to f32,
+    but XLA drops the round trip between the two (the compiled HLO of
+    dla_34 at 128x128, under ``dcn_impl`` xla and pallas_full alike: every
+    ``ConvBN`` feeds its BatchNorm an f32 convolution;
+    ``tests/test_torch_dla_site.py: bn_inputs``).  So the conv runs in f32
+    on the bf16 values of x and of the weight (``tf32_convs``), BatchNorm
+    in f32, and its output is rounded to bf16.  The DCN sites are not such a case: there
+    the reference's explicit cast of the DCN output to the compute dtype
+    survives compilation, and BatchNorm gets the rounded value
+    (``models/dla.DeformConv``).  Train mode and f32 inputs: the conv in
+    x's dtype, then BatchNorm."""
+    if bn.training or x.dtype == torch.float32:
+        return bn(conv(x))
+    w = conv.weight.to(x.dtype).float()
+    with tf32_convs(x):
+        if isinstance(conv, nn.ConvTranspose2d):
+            y = F.conv_transpose2d(x.float(), w, None, conv.stride,
+                                   conv.padding, conv.output_padding,
+                                   conv.groups, conv.dilation)
+        else:
+            y = conv._conv_forward(x.float(), w, None)
+    return bn(y).to(x.dtype)
+
+
 class ConvBN(nn.Module):
-    """Conv (no bias) -> BN -> (optional ReLU)."""
+    """Conv (no bias) -> BN -> (optional ReLU); ``groups`` and
+    ``dilation`` as the reference's (padding ``dilation * (kernel - 1) //
+    2``)."""
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
-                 strides: int = 1, relu: bool = True):
+                 strides: int = 1, relu: bool = True, groups: int = 1,
+                 dilation: int = 1):
         super().__init__()
         self.Conv_0 = Conv2d(in_features, features, kernel, stride=strides,
-                             padding=(kernel - 1) // 2, bias=False)
+                             padding=dilation * (kernel - 1) // 2,
+                             dilation=dilation, groups=groups, bias=False)
         nn.init.kaiming_normal_(self.Conv_0.weight)
         self.BatchNorm_0 = BatchNorm2d(features)
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.BatchNorm_0(self.Conv_0(x))
+        x = conv_bn(self.Conv_0, self.BatchNorm_0, x)
         return torch.relu(x) if self.relu else x
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` whose weight is cast to the input's dtype at
+    use (flax ``nn.ConvTranspose(dtype=...)``); no bias."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), None,
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
+def bilinear_1d(size: int) -> np.ndarray:
+    """One row of the bilinear upsampling kernel of ``size`` taps (upstream
+    fill_up_weights; the 2-D kernel is its outer product)."""
+    f = int(np.ceil(size / 2.0))
+    c = (2 * f - 1 - f % 2) / (2.0 * f)
+    return np.array([1 - abs(i / f - c) for i in range(size)],
+                    dtype=np.float32)
+
+
+def bilinear_upsample_init(weight: torch.Tensor) -> None:
+    """The reference's ``bilinear_upsample_init`` for a transposed-conv
+    weight [in, out, k, k]: the bilinear kernel on the diagonal channels,
+    zero elsewhere.  The kernel is symmetric, so flax's layout and the
+    spatial flip of ``weights.py`` leave it as it is."""
+    w1 = torch.from_numpy(bilinear_1d(weight.shape[-1]))
+    with torch.no_grad():
+        weight.zero_()
+        for ch in range(min(weight.shape[0], weight.shape[1])):
+            weight[ch, ch] = torch.outer(w1, w1)
+
+
+class DeconvBN(nn.Module):
+    """ConvTranspose (k4 s2, bilinear init) -> BN -> ReLU; doubles H and W.
+    Flax's ``ConvTranspose(k4, s2, "SAME")`` is ``conv_transpose2d(stride
+    2, padding 1)`` on the spatially flipped kernel (``weights.py``)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.ConvTranspose_0 = ConvTranspose2d(in_features, features, 4,
+                                               stride=2, padding=1,
+                                               bias=False)
+        bilinear_upsample_init(self.ConvTranspose_0.weight)
+        self.BatchNorm_0 = BatchNorm2d(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(conv_bn(self.ConvTranspose_0, self.BatchNorm_0, x))
+
+
+def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Nearest-neighbour upsample of an NCHW tensor by a power-of-two
+    factor (each value repeated ``factor`` times in H and in W; the source
+    index ``dst / factor`` is exact)."""
+    return F.interpolate(x, scale_factor=factor, mode="nearest")
 
 
 class HeadStack(nn.Module):
@@ -138,19 +254,43 @@ class HeadStack(nn.Module):
         for name in self.heads:
             h = x
             if self.head_conv > 0:
-                h = torch.relu(getattr(self, f"{name}_conv")(h))
-            h = getattr(self, f"{name}_out")(h)
+                h = torch.relu(self._conv(f"{name}_conv", h, True))
+            h = self._conv(f"{name}_out", h, False)
             out[name] = h.permute(0, 2, 3, 1).float()
         return out
 
+    def _conv(self, name: str, x: torch.Tensor,
+              round_sum: bool) -> torch.Tensor:
+        """The conv ``name`` with its bias.  Eval mode with a bf16 input
+        rounds where the reference's compiled bf16 graph rounds: the conv's
+        result to bf16, then the bias added to it, rounded again inside the
+        head (``round_sum``) and left in f32 at the output, whose cast to
+        f32 drops that rounding (the compiled HLO of dla_34 at 128x128).
+        cuDNN would add the bias before a single rounding."""
+        conv = getattr(self, name)
+        if self.training or x.dtype == torch.float32:
+            return conv(x)
+        y = conv._conv_forward(x, conv.weight.to(x.dtype), None)
+        bias = conv.bias.to(x.dtype).view(1, -1, 1, 1)
+        return y + bias if round_sum else y.float() + bias.float()
+
+
+def add_numbered(parent: nn.Module, kind: str, child: nn.Module) -> nn.Module:
+    """Register ``child`` under flax's automatic name ``{kind}_{n}``, n
+    counting the children of that kind registered so far (flax numbers
+    unnamed submodules per class in call order); returns ``child``."""
+    n = sum(1 for k in parent._modules if k.rsplit("_", 1)[0] == kind)
+    parent.add_module(f"{kind}_{n}", child)
+    return child
+
 
 def to_channels_last(model: nn.Module) -> nn.Module:
-    """Put every ``nn.Conv2d`` weight in channels_last (NHWC) memory, the
-    layout the model's activations use.  ``Module.to(memory_format=...)``
-    would also permute the DCN parameters, whose [3, 3, Cin, C] layout the
+    """Put every ``nn.Conv2d`` and ``nn.ConvTranspose2d`` weight in
+    channels_last (NHWC) memory, the layout the model's activations use.
+    ``Module.to(memory_format=...)`` would also permute the DCN parameters, whose [3, 3, Cin, C] layout the
     kernel takes as it is; they are left alone."""
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             m.to(memory_format=torch.channels_last)
     return model
 

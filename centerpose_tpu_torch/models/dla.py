@@ -33,7 +33,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from centerpose_tpu_torch.models.common import BatchNorm2d, ConvBN, HeadStack
+from centerpose_tpu_torch.models.common import (BatchNorm2d, ConvBN, HeadStack,
+                                                bilinear_1d, tf32_convs)
 from centerpose_tpu_torch.ops.dcn_cuda import (dcn_v2, dcn_v2_fused,
                                                site_max_dy, site_om_fused,
                                                train_site_edge_grad,
@@ -110,7 +111,11 @@ class DCN(nn.Module):
 
 
 class DeformConv(nn.Module):
-    """DCN 3x3 -> BN -> ReLU."""
+    """DCN 3x3 -> BN -> ReLU.  BatchNorm takes the DCN output in the compute
+    dtype, as in the reference's compiled bf16 graph under both ``xla`` and
+    ``pallas_full``: there the DCN's cast of its f32 result to bf16 survives
+    (unlike a conv's, ``common.conv_bn``; ``tests/test_torch_dla_site.py:
+    bn_inputs``)."""
 
     def __init__(self, in_features: int, features: int, dcn_impl: str = "xla",
                  dcn_max_dy: int = 0):
@@ -122,18 +127,10 @@ class DeformConv(nn.Module):
         return torch.relu(self.BatchNorm_0(self.DCN_0(x)))
 
 
-def _bilinear_weights_1d(factor: int) -> np.ndarray:
-    """1-D bilinear kernel of size 2*factor (one row of fill_up_weights)."""
-    k = 2 * factor
-    f = int(np.ceil(k / 2.0))
-    c = (2 * f - 1 - f % 2) / (2.0 * f)
-    return np.array([1 - abs(i / f - c) for i in range(k)], dtype=np.float32)
-
-
 def bilinear_kernel(channels: int, factor: int) -> torch.Tensor:
     """Depthwise transposed-conv weight [C, 1, 2f, 2f] of the fixed
     bilinear upsample (the outer product of the 1-D kernel)."""
-    w1 = torch.from_numpy(_bilinear_weights_1d(factor))
+    w1 = torch.from_numpy(bilinear_1d(2 * factor))
     return torch.outer(w1, w1).expand(channels, 1, 2 * factor, 2 * factor).clone()
 
 
@@ -259,6 +256,8 @@ class IDAUp(nn.Module):
                  dcn_max_dy: int = 0):
         super().__init__()
         self.up_factors = [int(f) for f in up_factors]
+        self.float32_params = tuple(f"up_{i}" for i in range(1, len(channels))
+                                    if self.up_factors[i] > 1)
         for i in range(1, len(channels)):
             self.add_module(f"proj_{i}", DeformConv(
                 channels[i], features, dcn_impl, dcn_max_dy))
@@ -275,11 +274,18 @@ class IDAUp(nn.Module):
         for i in range(startp + 1, endp):
             j = i - startp
             p = getattr(self, f"proj_{j}")(layers[i])
+            dt = p.dtype
             f = self.up_factors[j]
             if f > 1:
-                up = getattr(self, f"up_{j}").to(p.dtype)
-                p = bilinear_upsample(p, f, up)
-            layers[i] = getattr(self, f"node_{j}")(p + layers[i - 1])
+                # the reference's bilinear weights are numpy f32 scalars: a
+                # bf16 p is promoted, so the upsample and the sum run in
+                # f32, rounded once where the node's DCN casts its input
+                # (also in training: it is type promotion, not a compiler
+                # choice); TF32 reads bf16 values and these weights exactly
+                with tf32_convs(p):
+                    p = bilinear_upsample(p.float(), f,
+                                          getattr(self, f"up_{j}").float())
+            layers[i] = getattr(self, f"node_{j}")((p + layers[i - 1]).to(dt))
         return layers
 
 

@@ -9,8 +9,12 @@ reports OKS keypoint AP:
         [--json out.json] [KEY VALUE ...]
 
 Without ``--cfg`` the config is the flagship's (dla_34 @512, bfloat16,
-``pallas_full``), built in code; ``test.model_path`` defaults to the
-committed dla_34 snapshot.  Weights are read from ``.npz`` snapshots only.
+``pallas_full``), built in code; ``--defaults`` starts from the config
+defaults instead (float32, ``xla``, ``head_conv`` 64), as the reference's
+``load_config(None, opts)`` does, e.g. ``--defaults model.name res_18
+test.model_path output/res18_hard_artifact/params_f16.npz``.
+``test.model_path`` defaults to the committed dla_34 snapshot.  Weights are
+read from ``.npz`` snapshots only.
 Evaluating COCO annotation files waits for the COCO reader.
 """
 
@@ -34,6 +38,15 @@ from centerpose_tpu_torch.weights import state_dict_from_npz
 ROOT = Path(__file__).resolve().parents[2]
 SNAPSHOT = ROOT / "output" / "dla34_hard_artifact" / "params_f16.npz"
 STAGES = ("tot", "pre", "net", "post", "merge")
+
+
+def run_config(path: Optional[str], opts, defaults: bool = False) -> Config:
+    """The config of a run with the ``KEY VALUE`` overrides ``opts``, on
+    ``path`` (a YAML file), else on the defaults where ``defaults`` is set,
+    else on the flagship's."""
+    if path or defaults:
+        return load_config(path, list(opts or []))
+    return flagship_config(list(opts or []))
 
 
 def load_detector(cfg: Config, device: str = "cuda") -> Detector:
@@ -107,6 +120,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="centerpose_tpu_torch evaluation")
     p.add_argument("--cfg", type=str, default=None,
                    help="experiment yaml (default: the flagship, in code)")
+    p.add_argument("--defaults", action="store_true",
+                   help="without --cfg: start from the config defaults, "
+                        "not the flagship")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--synthetic-size", type=int, default=64)
     p.add_argument("--synthetic-seed", type=int, default=2,
@@ -128,8 +144,7 @@ def main(argv=None) -> None:
     if not args.synthetic:
         raise SystemExit("only --synthetic is ported; reading COCO "
                          "annotation files waits for the COCO reader")
-    cfg = (load_config(args.cfg, args.opts) if args.cfg
-           else flagship_config(args.opts))
+    cfg = run_config(args.cfg, args.opts, args.defaults)
     dataset = SyntheticEvalDataset(args.synthetic_size,
                                    seed=args.synthetic_seed, hard=args.hard)
     detector = load_detector(cfg, args.device)

@@ -1,20 +1,24 @@
 """Hard-benchmark evaluation tool, counterpart of ``tools/hard_eval.py``.
 
-Evaluates the flagship snapshot on the hard synthetic benchmark (512
-scenes of ``render_scene_hard``, seed 3) in each row of two plans, in this
-process, and writes one JSON laid out as the reference's
-``output/hard_eval.json``:
+Evaluates snapshots on the hard synthetic benchmark (512 scenes of
+``render_scene_hard``, seed 3), in this process, and writes one JSON laid
+out as the reference's ``output/hard_eval.json``:
 
 - ``flagship.modes``: the TTA ladder single -> flip -> multi-scale + flip +
   soft-NMS (``FLAGSHIP_MODES``, on the flagship config);
 - ``flagship.cross_impl``: the same weights through the DCN site policies
-  and dtypes of ``CROSS_IMPL``.
+  and dtypes of ``CROSS_IMPL``;
+- ``backbones.{name}``: each ``--backbone name=path/to/params_f16.npz`` at
+  single scale on the defaults with ``model.name`` set (float32, ``xla``,
+  ``head_conv`` 64), as the reference's ``--backbone`` rows ran.
 
     python -m centerpose_tpu_torch.tools.hard_eval [--device cpu] \\
         [--rows xla_f32,single] [--n 512] [--json port_output/hard_eval.json]
+    python -m centerpose_tpu_torch.tools.hard_eval \\
+        --backbone res_18=output/res18_hard_artifact/params_f16.npz
 
-Rows already in the JSON (same ``--n``) are kept and not run again.  The
-per-backbone rows wait for the other backbones.
+Rows already in the JSON (same ``--n``) are kept and not run again.  With
+``--backbone`` the flagship rows run only where ``--rows`` names them.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import os
 from pathlib import Path
 from typing import Dict, List
 
-from centerpose_tpu_torch.config import flagship_config
+from centerpose_tpu_torch.config import Config, flagship_config, load_config
 from centerpose_tpu_torch.data.synthetic import SyntheticEvalDataset
 from centerpose_tpu_torch.tools.evaluate import (ROOT, SNAPSHOT, evaluate,
                                                  load_detector, no_tf32,
@@ -47,6 +51,9 @@ CROSS_IMPL = {
                         "model.compute_dtype", "float32"],
 }
 
+# per-backbone rows are single scale, whatever a yaml would ship
+BACKBONE_OPTS = ["test.flip_test", "false", "test.test_scales", "[1.0]"]
+
 SEED = 3  # held out: train scenes use seed 1, the AP-gating val split 2
 
 
@@ -57,12 +64,17 @@ def hard_dataset(n: int = 512, render_workers: int = 0) -> SyntheticEvalDataset:
     return ds
 
 
-def run_row(dataset: SyntheticEvalDataset, opts: List[str],
-            device: str = "cuda", model_path: str = "") -> dict:
-    """One row: the flagship config with ``opts``, every image of
-    ``dataset`` through ``Detector.run``, OKS AP; the reference's payload
-    with ``cmd_opts``."""
-    cfg = flagship_config(list(opts) + ["test.model_path", model_path])
+def backbone_config(name: str, path: str) -> Config:
+    """A per-backbone row's config: the defaults, ``model.name``, single
+    scale, the snapshot at ``path``."""
+    return load_config(None, BACKBONE_OPTS + ["model.name", name,
+                                              "test.model_path", path])
+
+
+def evaluate_row(dataset: SyntheticEvalDataset, cfg: Config, opts: List[str],
+                 device: str = "cuda") -> dict:
+    """Every image of ``dataset`` through ``Detector.run`` on ``cfg``, OKS
+    AP; the reference's payload with ``cmd_opts``."""
     detector = load_detector(cfg, device)
     results, times, wall = evaluate(detector, dataset,
                                     progress=print_progress(len(dataset)))
@@ -70,6 +82,13 @@ def run_row(dataset: SyntheticEvalDataset, opts: List[str],
     out = payload(stats, len(results), times, wall, cfg, True, device)
     out["cmd_opts"] = list(opts)
     return out
+
+
+def run_row(dataset: SyntheticEvalDataset, opts: List[str],
+            device: str = "cuda", model_path: str = "") -> dict:
+    """One flagship row: the flagship config with ``opts``."""
+    cfg = flagship_config(list(opts) + ["test.model_path", model_path])
+    return evaluate_row(dataset, cfg, opts, device)
 
 
 def parse_args(argv=None):
@@ -81,6 +100,10 @@ def parse_args(argv=None):
     p.add_argument("--rows", default="",
                    help="comma-separated rows to run (default: all of "
                         + ", ".join([*FLAGSHIP_MODES, *CROSS_IMPL]) + ")")
+    p.add_argument("--backbone", action="append", default=[],
+                   metavar="NAME=NPZ",
+                   help="a per-backbone row (repeatable), e.g. "
+                        "res_18=output/res18_hard_artifact/params_f16.npz")
     p.add_argument("--device", default="cuda")
     p.add_argument("--render-workers", type=int, default=0,
                    help="processes that draw the scenes (0: this one)")
@@ -94,6 +117,9 @@ def main(argv=None) -> None:
     no_tf32()
     plans = {"modes": FLAGSHIP_MODES, "cross_impl": CROSS_IMPL}
     wanted = [r for r in args.rows.split(",") if r]
+    backbones = dict(spec.partition("=")[::2] for spec in args.backbone)
+    if any(not path for path in backbones.values()):
+        raise SystemExit(f"--backbone takes NAME=NPZ: {args.backbone}")
     known = [name for plan in plans.values() for name in plan]
     unknown = sorted(set(wanted) - set(known))
     if unknown:
@@ -117,19 +143,34 @@ def main(argv=None) -> None:
             json.dump(out, f, indent=1)
 
     dataset = None
+
+    def scenes() -> SyntheticEvalDataset:
+        nonlocal dataset
+        if dataset is None:
+            dataset = hard_dataset(args.n, args.render_workers)
+        return dataset
+
     ckpt = args.flagship or str(SNAPSHOT.relative_to(ROOT))
     fl = out.setdefault("flagship", {"arch": "dla_34", "ckpt": ckpt})
     for plan_name, plan in plans.items():
         rows = fl.setdefault(plan_name, {})
         for name, opts in plan.items():
-            if name in rows or (wanted and name not in wanted):
+            if name in rows or ((wanted or backbones)
+                                and name not in wanted):
                 continue
-            if dataset is None:
-                dataset = hard_dataset(args.n, args.render_workers)
             print(f"== flagship {plan_name} {name}", flush=True)
-            rows[name] = run_row(dataset, opts, args.device, args.flagship)
+            rows[name] = run_row(scenes(), opts, args.device, args.flagship)
             save()
             print(json.dumps(rows[name]["stats"]), flush=True)
+    bb = out.setdefault("backbones", {})
+    for name, path in backbones.items():
+        if name in bb:
+            continue
+        print(f"== backbone {name}", flush=True)
+        bb[name] = evaluate_row(scenes(), backbone_config(name, path),
+                                BACKBONE_OPTS, args.device)
+        save()
+        print(json.dumps(bb[name]["stats"]), flush=True)
     save()
     print("wrote", args.json)
 

@@ -7,12 +7,20 @@ the params often stored as float16.  The port's modules carry the flax
 submodule names, so a key becomes a state-dict key by joining its path with
 dots and renaming the leaf:
 
-* conv ``kernel`` [kh, kw, in, out] (HWIO) -> ``weight`` OIHW;
+* conv ``kernel`` [kh, kw, in/groups, out] (HWIO) -> ``weight`` OIHW
+  (grouped and depthwise kernels by the same transpose);
+* transposed-conv ``kernel`` (under ``ConvTranspose_*``) [kh, kw, in, out]
+  -> ``weight`` [in, out, kh, kw], flipped in both spatial axes: flax's
+  ``ConvTranspose(k4, s2, "SAME")`` correlates the stride-dilated input
+  with the kernel as it is, ``conv_transpose2d(stride 2, padding 1)`` with
+  the kernel flipped;
 * DCN ``kernel`` [3, 3, Cin, Cout] and ``conv_offset_mask/kernel``
   [3, 3, Cin, 27] -> ``weight``, kept in the DCN op's layout (om channels
   0..17 are the (dy, dx) offsets per tap, 18..26 the mask logits);
 * BatchNorm ``scale`` / ``bias`` / ``mean`` / ``var`` -> ``weight`` /
-  ``bias`` / ``running_mean`` / ``running_var`` (eps 1e-5 on both sides).
+  ``bias`` / ``running_mean`` / ``running_var`` (eps 1e-5 on both sides);
+* a parameter a module declares itself (BiFPN's fusion weights ``td{i}``,
+  ``bu{i}``) keeps its name.
 
 Arrays are cast to float32.  Only numpy reads the file.  ``npz_arrays``
 maps the other way, for comparing a port's parameters, gradients or
@@ -31,6 +39,7 @@ import torch.nn as nn
 _PATH = re.compile(r"\['([^']+)'\]")
 _DCN_PARENTS = ("DCN_0", "conv_offset_mask")
 _STATS = {"mean": "running_mean", "var": "running_var"}
+_OWN_PARAMS = re.compile(r"(td|bu)\d+")
 
 
 def torch_key(npz_key: str) -> str:
@@ -45,7 +54,8 @@ def torch_key(npz_key: str) -> str:
             raise KeyError(f"unknown batch_stats leaf in {npz_key!r}")
         leaf = _STATS[leaf]
     elif group == "params":
-        leaf = {"kernel": "weight", "scale": "weight", "bias": "bias"}.get(leaf)
+        leaf = {"kernel": "weight", "scale": "weight", "bias": "bias"}.get(
+            leaf, leaf if _OWN_PARAMS.fullmatch(leaf) else None)
         if leaf is None:
             raise KeyError(f"unknown params leaf in {npz_key!r}")
     else:
@@ -53,10 +63,15 @@ def torch_key(npz_key: str) -> str:
     return ".".join(parts[:-1] + [leaf])
 
 
-def _is_conv_kernel(npz_key: str) -> bool:
+def _kernel_kind(npz_key: str) -> str:
+    """'conv', 'transpose' (a ``ConvTranspose_*`` kernel) or '' (any other
+    leaf, DCN kernels among them)."""
     parts = _PATH.findall(npz_key.partition(":")[2])
-    return (npz_key.startswith("params:") and parts[-1] == "kernel"
-            and parts[-2] not in _DCN_PARENTS)
+    if not npz_key.startswith("params:") or parts[-1] != "kernel":
+        return ""
+    if parts[-2] in _DCN_PARENTS:
+        return ""
+    return "transpose" if parts[-2].startswith("ConvTranspose") else "conv"
 
 
 def state_dict_from_npz(path: str) -> Dict[str, torch.Tensor]:
@@ -65,10 +80,13 @@ def state_dict_from_npz(path: str) -> Dict[str, torch.Tensor]:
     with np.load(path) as data:
         for key in data.files:
             arr = np.asarray(data[key], dtype=np.float32)
-            if _is_conv_kernel(key):
-                if arr.ndim != 4:
-                    raise ValueError(f"{key}: conv kernel of rank {arr.ndim}")
+            kind = _kernel_kind(key)
+            if kind and arr.ndim != 4:
+                raise ValueError(f"{key}: conv kernel of rank {arr.ndim}")
+            if kind == "conv":
                 arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            elif kind == "transpose":
+                arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)  # -> [in, out, kh, kw]
             name = torch_key(key)
             if name in out:
                 raise KeyError(f"two snapshot keys map to {name!r}")
@@ -83,9 +101,12 @@ def npz_arrays(tensors: Dict[str, torch.Tensor], npz_keys) -> Dict[str, np.ndarr
     out = {}
     for key in npz_keys:
         arr = tensors[torch_key(key)].detach().float().cpu().numpy()
-        if _is_conv_kernel(key):
+        kind = _kernel_kind(key)
+        if kind == "conv":
             arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-        out[key] = arr
+        elif kind == "transpose":
+            arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+        out[key] = np.ascontiguousarray(arr)
     return out
 
 

@@ -95,3 +95,38 @@ def test_hard_eval_runs_a_row_and_keeps_it(tmp_path, capsys):
     assert "== flagship" not in capsys.readouterr().out
     with pytest.raises(SystemExit):
         hard_eval.main(["--rows", "nope", "--json", str(out)])
+
+
+def test_hard_eval_backbone_row(tmp_path):
+    """``--backbone NAME=NPZ``: a single-scale row on the defaults with
+    ``model.name`` set, under ``backbones``; no flagship row runs unless
+    ``--rows`` names it."""
+    out = tmp_path / "hard.json"
+    npz = "output/mbv3_hard_artifact/params_f16.npz"
+    hard_eval.main(["--n", "1", "--backbone", f"mobilenetv3={npz}",
+                    "--device", "cpu", "--json", str(out)])
+    p = json.loads(out.read_text())
+    row = p["backbones"]["mobilenetv3"]
+    assert row["cmd_opts"] == hard_eval.BACKBONE_OPTS
+    assert row["model_path"] == npz and row["n_images"] == 1
+    assert 0 <= row["stats"]["AP"] <= 1
+    assert not any(p["flagship"][plan] for plan in ("modes", "cross_impl"))
+    cfg = hard_eval.backbone_config("res_18", npz)
+    assert (cfg.model.name, cfg.model.head_conv, cfg.model.compute_dtype,
+            cfg.model.dcn_impl, cfg.test.flip_test, tuple(cfg.test.test_scales)
+            ) == ("res_18", 64, "float32", "xla", False, (1.0,))
+    with pytest.raises(SystemExit):
+        hard_eval.main(["--backbone", "res_18", "--json", str(out)])
+
+
+def test_evaluate_config_base():
+    """Without ``--cfg`` the overrides apply to the flagship, whatever
+    architecture they name; with ``--defaults`` to the config defaults."""
+    flag = port_eval.run_config(None, ["model.name", "hrnet_w32"])
+    assert (flag.model.name, flag.model.head_conv, flag.model.compute_dtype) \
+        == ("hrnet_w32", 256, "bfloat16")
+    args = port_eval.parse_args(["--synthetic", "--defaults",
+                                 "model.name", "hrnet_w32"])
+    cfg = port_eval.run_config(args.cfg, args.opts, args.defaults)
+    assert (cfg.model.name, cfg.model.head_conv, cfg.model.compute_dtype) \
+        == ("hrnet_w32", 64, "float32")

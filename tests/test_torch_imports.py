@@ -73,6 +73,15 @@ with tempfile.TemporaryDirectory() as tmp:
         "train.val_intervals", "0", "output_dir", tmp])
 assert run["trainer"].step == 1 and np.isfinite(run["first_loss"])
 native.available()
+# the other backbones: the factory's 14 names; a snapshot serves
+from centerpose_tpu_torch.models.factory import MODEL_FACTORY
+assert len(MODEL_FACTORY) == 14
+bb = update_config(default_config(), {"model": {
+    "name": "mobilenetv3", "input_res": 64, "output_res": 16}})
+npz = sys.argv[1].replace("dla34_hard_artifact", "mbv3_hard_artifact")
+dets = Detector(bb, state_dict_from_npz(npz), device="cpu").run_batch(
+    np.zeros((1, 64, 64, 3), np.uint8))
+assert dets.shape == (1, 100, 40) and np.isfinite(dets).all()
 bad = [m for m in ("jax", "flax", "optax", "cv2", "yaml", "centerpose_tpu")
        if sys.modules.get(m) is not None]
 assert not bad, bad
