@@ -13,12 +13,10 @@ C++ (``native/encoder.cpp``) when the native library is available and
 ``loss.dense_hp`` is off; the Python loop is the fallback and the
 behavioural reference.
 
-The one difference is the image warp: the JAX package calls
-``cv2.warpAffine`` (bilinear in 1/32-pixel fixed point), the port
-``ops/image.warp_affine`` on a CPU tensor (bilinear in float32), rounded to
-uint8 to the nearest as cv2's ``saturate_cast`` rounds.  A pixel may land
-one intensity level apart (``tests/test_torch_train_data.py`` holds the
-bound).
+The image warp is bit-equal to the JAX package's ``cv2.warpAffine`` on
+uint8 images (the native library's ``warp.cpp``, else
+``ops/image.warp_affine`` on a CPU tensor), so every output is bit-equal
+too (``tests/test_torch_train_data.py``).
 """
 
 from __future__ import annotations
@@ -32,10 +30,12 @@ import torch
 from centerpose_tpu_torch import native
 from centerpose_tpu_torch.ops.image import (
     COLOR_AUG_IDENTITY,
+    CV2_LANES,
     FLIP_IDX,
     affine_transform_batch,
     color_aug,
     color_aug_coeffs,
+    cv2_inverse,
     draw_umich_gaussian,
     gaussian_radius,
     get_affine_transform,
@@ -45,11 +45,14 @@ from centerpose_tpu_torch.ops.image import (
 
 def _warp_image(img: np.ndarray, trans: np.ndarray, out_w: int,
                 out_h: int) -> np.ndarray:
-    """uint8 HWC warp: float32 bilinear with a zero border, rounded to the
-    nearest integer (half to even) and saturated to [0, 255]."""
-    out = warp_affine(torch.from_numpy(np.ascontiguousarray(img)), trans,
-                      (out_w, out_h))
-    return torch.round(out).clamp(0, 255).to(torch.uint8).numpy()
+    """uint8 HWC warp with a zero border (``cv2.warpAffine``'s
+    arithmetic): the native library's, else ``ops/image.warp_affine``."""
+    out = native.warp_affine_native(img, cv2_inverse(trans), CV2_LANES,
+                                    out_w, out_h)
+    if out is not None:
+        return out
+    return warp_affine(torch.from_numpy(np.ascontiguousarray(img)), trans,
+                       (out_w, out_h)).numpy()
 
 
 def encode_example(

@@ -21,6 +21,7 @@ loop.
 
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -28,6 +29,8 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from centerpose_tpu_torch.data.coco import read_image
 
 STAGES = ("tot", "pre", "net", "post", "merge")
 # images of one input shape per forward
@@ -41,7 +44,9 @@ def evaluate_detector(
     inflight: int = 4,
     progress: Optional[Callable[[int], None]] = None,
 ) -> Tuple[Dict[int, Dict[int, np.ndarray]], Dict[str, float], float]:
-    """Run ``detector`` over ``items``, (img_id, RGB uint8 image) pairs.
+    """Run ``detector`` over ``items``, (img_id, RGB uint8 image or image
+    file path) pairs; a path is decoded in the pre-process workers
+    (``data/coco.read_image``).
 
     Returns (results by img_id, summed per-stage seconds, wall seconds).
     ``workers=0`` runs the serial ``detector.run`` loop instead."""
@@ -63,10 +68,12 @@ def evaluate_detector(
 
     def preproc(task):
         img_id, im = task
-        if not isinstance(im, np.ndarray):
-            raise TypeError("evaluate_detector takes [H, W, 3] numpy images; "
-                            "decoding image files is not ported")
         t0 = time.perf_counter()
+        if isinstance(im, (str, os.PathLike)):
+            im = read_image(os.fspath(im))
+        if not isinstance(im, np.ndarray):
+            raise TypeError("evaluate_detector takes [H, W, 3] numpy images "
+                            "or image file paths")
         src = torch.from_numpy(np.ascontiguousarray(im)).to(detector.device)
         per_scale = [detector.pre_process(src, s) for s in scales]
         return img_id, per_scale, time.perf_counter() - t0

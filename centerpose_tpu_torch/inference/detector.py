@@ -9,11 +9,14 @@ host inverse affine; then the scales' detections are concatenated, merged
 by soft-NMS under multi-scale or ``test.nms``, and the top K kept.
 
 Everything up to the decoded [B, K, 40] rows runs on the device: the image
-is uploaded as uint8 once and resized and warped there (no cv2).
+is uploaded as uint8 once and resized and warped there (no cv2).  ``run``
+also takes an image file's path, decoded on the host with cv2
+(``data/coco.read_image``).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from centerpose_tpu_torch.config import Config
+from centerpose_tpu_torch.data.coco import read_image
 from centerpose_tpu_torch.inference.post_process import multi_pose_post_process
 from centerpose_tpu_torch.losses import sigmoid_clamped
 from centerpose_tpu_torch.models.common import (to_channels_last,
@@ -139,9 +143,8 @@ class Detector:
             src = torch.from_numpy(np.ascontiguousarray(image))
         src = resize_linear(src.to(self.device), (new_width, new_height))
         warped = warp_affine(src, trans, (inp_width, inp_height))
-        if src.dtype == torch.uint8:
-            inp = warped.round_().clamp_(0, 255).to(torch.uint8)
-        else:
+        inp = warped
+        if src.dtype != torch.uint8:
             inp = (warped / 255.0 - self.mean) / self.std
         down = self.cfg.model.input_res // self.cfg.model.output_res
         meta = {"c": c, "s": s, "out_height": inp_height // down,
@@ -175,16 +178,20 @@ class Detector:
     # ------------------------------------------------------------------
     # entry points
     # ------------------------------------------------------------------
-    def run(self, image: np.ndarray) -> Dict:
-        """Full pipeline on one RGB [H, W, 3] image over ``test.test_scales``;
-        returns the results and per-stage wall times (seconds, device work
-        synchronised; ``pre`` includes the one upload)."""
+    def run(self, image) -> Dict:
+        """Full pipeline on one RGB [H, W, 3] image, or an image file's
+        path (decoded as the reference does: ``data/coco.read_image``),
+        over ``test.test_scales``; returns the results and per-stage wall
+        times (seconds, device work synchronised; ``pre`` includes the
+        decode and the one upload)."""
+        t_start = time.perf_counter()
+        if isinstance(image, (str, os.PathLike)):
+            image = read_image(os.fspath(image))
         if not isinstance(image, np.ndarray):
-            raise TypeError("Detector.run takes an [H, W, 3] numpy image; "
-                            "decoding image files is not ported")
+            raise TypeError("Detector.run takes an [H, W, 3] numpy image or "
+                            "an image file's path")
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else (lambda: None))
-        t_start = time.perf_counter()
         src = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
         detections = []
         pre_t = net_t = post_t = 0.0

@@ -10,9 +10,9 @@ Compute dtype, as the reference's per-module ``dtype``: every module casts
 its weights to the dtype of the activations it is given, at use.  Training
 keeps float32 master parameters (``set_compute_dtype``); inference may cast
 them once (``to_compute_dtype``), after which the per-use cast is free.
-BatchNorm parameters and statistics stay float32 either way.  In eval
-mode a bf16 model hands each BatchNorm its conv's f32 result, as the
-reference's compiled graph does (``conv_bn``).
+BatchNorm parameters and statistics stay float32 either way.  A bf16
+model hands each BatchNorm its conv's f32 result, as the reference's
+compiled graph does, in eval and in train mode (``conv_bn``).
 
 BatchNorm: torch momentum 0.1 is flax momentum 0.9; eps is 1e-5.  In train
 mode the port's ``BatchNorm2d`` follows flax, not torch: one pair of batch
@@ -44,6 +44,12 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+def _narrow(dtype: torch.dtype) -> bool:
+    """A compute dtype narrower than float32 (bf16): the reference's
+    compiled graph rounds to it where the port follows."""
+    return torch.finfo(dtype).bits < 32
+
+
 class _TrainBatchNorm(torch.autograd.Function):
     """Train-mode BatchNorm over (N, H, W) with flax's statistics
     (``use_fast_variance``): ``mean = E[x]`` and the biased ``var =
@@ -51,15 +57,17 @@ class _TrainBatchNorm(torch.autograd.Function):
     ``(x - mean) * rsqrt(var + eps) * scale + bias`` (torch's batch norm on
     those statistics, computed in float32 and returned in x's dtype); the
     gradient is torch's train-mode batch-norm backward on the same mean and
-    ``rsqrt(var + eps)``.  Returns ``(y, mean, var)``."""
+    ``rsqrt(var + eps)``, or flax's with its rounding where ``grad_dtype``
+    is given (``_flax_grads``).  Returns ``(y, mean, var)``."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, grad_dtype):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = xf.mean((0, 2, 3))
         var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
         ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
         ctx.eps = eps
+        ctx.grad_dtype = grad_dtype
         ctx.mark_non_differentiable(mean, var)
         return F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps), \
             mean, var
@@ -67,10 +75,39 @@ class _TrainBatchNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
         x, weight, mean, invstd = ctx.saved_tensors
+        if ctx.grad_dtype is not None:
+            return (*_flax_grads(gy, x, weight, mean, invstd, ctx.eps,
+                                 ctx.grad_dtype), None, None)
         gx, gw, gb = torch.ops.aten.native_batch_norm_backward(
             gy, x, weight, None, None, mean, invstd, True, ctx.eps,
             list(ctx.needs_input_grad[:3]))
-        return gx, gw, gb, None
+        return gx, gw, gb, None, None
+
+
+def _flax_grads(gy, x, weight, mean, invstd, eps, dtype):
+    """(input, scale, bias) gradients of flax's train-mode BatchNorm of a
+    value the reference holds in ``dtype`` (bf16), as ``jax.grad`` of it
+    computes them.  Flax widens that value twice, for the statistics and
+    for ``x - mean``, and the transpose of each widening rounds its part of
+    the input gradient to ``dtype`` before the two parts are summed in
+    ``dtype`` (the compiled train step of a bf16 ``ConvBN``).  The parts,
+    in f32: ``gy * mul`` through ``x - mean`` (``mul = rsqrt(var + eps) *
+    scale``); ``dmean / n + x * (dvar * 2 / n)`` through ``E[x]`` and
+    ``E[x^2]``, with ``dvar = sum(gy (x - mean)) * scale * -0.5 rsqrt(var +
+    eps) / (var + eps)`` and ``dmean = -sum(gy * mul) - dvar * 2 mean``.
+    The input gradient is returned in x's dtype."""
+    def ch(t):
+        return t.view(1, -1, 1, 1)
+
+    xdt, gy, x = x.dtype, gy.float(), x.float()
+    n = x.numel() // x.shape[1]
+    direct = gy * ch(invstd * weight)
+    dmul = (gy * (x - ch(mean))).sum((0, 2, 3))
+    dvar = dmul * weight * (-0.5 * invstd * invstd * invstd)
+    dmean = -direct.sum((0, 2, 3)) - dvar * (2.0 * mean)
+    stats = ch(dmean / n) + x * ch(dvar * (2.0 / n))
+    gx = (direct.to(dtype) + stats.to(dtype)).to(xdt)
+    return gx, dmul * invstd, gy.sum((0, 2, 3))
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -78,16 +115,23 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``use_fast_variance``): one pair of batch statistics, ``E[x]`` and
     ``E[x^2] - E[x]^2`` in float32 (``_TrainBatchNorm``), both normalises
     and updates the running statistics under ``no_grad`` as ``ra = m * ra +
-    (1 - m) * batch`` with m = 0.9.  Eval mode is ``nn.BatchNorm2d``'s."""
+    (1 - m) * batch`` with m = 0.9.  ``grad_dtype``: the dtype the
+    reference holds ``x`` in, x's own unless given (``conv_bn`` hands over
+    an f32 conv result the reference holds as bf16); where it is not
+    float32 the input gradient rounds as the reference's (``_flax_grads``).
+    Eval mode is ``nn.BatchNorm2d``'s."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                grad_dtype: torch.dtype | None = None) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if grad_dtype is None and _narrow(x.dtype):
+            grad_dtype = x.dtype
         y, mean, var = _TrainBatchNorm.apply(x, self.weight, self.bias,
-                                             self.eps)
+                                             self.eps, grad_dtype)
         with torch.no_grad():
             m = 1.0 - self.momentum
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
@@ -118,34 +162,71 @@ def tf32_convs(x: torch.Tensor):
         torch.backends.cudnn.allow_tf32 = prev
 
 
+class _ConvF32(torch.autograd.Function):
+    """The conv of a bf16 ``x`` and the weight ``w`` rounded to bf16
+    (``aten.convolution``, ``transposed`` for a ``ConvTranspose2d``)
+    computed in f32 on those bf16 values, with an f32 result, where the
+    reference's compiled bf16 graph, eval and train step alike, keeps the
+    conv's f32 result for BatchNorm (``tests/_torch_port.py:
+    train_step_reading``).  Backward as that train step's: every backward
+    conv reads two bf16-rounded operands, so the cotangent is rounded to
+    bf16 first; the input's gradient is computed in f32 and rounded to
+    bf16 (the cotangent of a bf16 value), the weight's is left in f32 (XLA
+    drops that round trip on the way to the f32 parameter).  On a CUDA
+    device both passes may use TF32 (``tf32_convs``), exact on bf16
+    values: the backward runs after the forward's scope has exited, so it
+    enters its own."""
+
+    @staticmethod
+    def forward(ctx, x, w, transposed, stride, padding, dilation,
+                output_padding, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conv = (stride, padding, dilation, transposed, output_padding,
+                    groups)
+        with tf32_convs(x):
+            return torch.ops.aten.convolution(
+                x.float(), w.to(x.dtype).float(), None, *ctx.conv)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        g = gy.to(x.dtype).float()
+        with tf32_convs(x):
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x.float(), w.to(x.dtype).float(), None, *ctx.conv,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return (None if gx is None else gx.to(x.dtype),
+                None if gw is None else gw.to(w.dtype),
+                None, None, None, None, None, None)
+
+
 def conv_bn(conv: nn.Module, bn: nn.BatchNorm2d,
             x: torch.Tensor) -> torch.Tensor:
     """``bn(conv(x))`` for a bias-free ``Conv2d`` or ``ConvTranspose2d``.
 
-    Eval mode with a bf16 input computes what the reference's compiled
-    graph computes: the conv's f32 result reaches BatchNorm unrounded.
-    Flax's bf16 conv returns bf16 and its BatchNorm promotes that to f32,
-    but XLA drops the round trip between the two (the compiled HLO of
-    dla_34 at 128x128, under ``dcn_impl`` xla and pallas_full alike: every
-    ``ConvBN`` feeds its BatchNorm an f32 convolution;
-    ``tests/test_torch_dla_site.py: bn_inputs``).  So the conv runs in f32
-    on the bf16 values of x and of the weight (``tf32_convs``), BatchNorm
-    in f32, and its output is rounded to bf16.  The DCN sites are not such a case: there
-    the reference's explicit cast of the DCN output to the compute dtype
-    survives compilation, and BatchNorm gets the rounded value
-    (``models/dla.DeformConv``).  Train mode and f32 inputs: the conv in
-    x's dtype, then BatchNorm."""
-    if bn.training or x.dtype == torch.float32:
+    A bf16 input is computed as the reference's compiled graph computes it,
+    in eval and in train mode alike: the conv's f32 result reaches
+    BatchNorm unrounded.  Flax's bf16 conv returns bf16 and its BatchNorm
+    promotes that to f32, but XLA drops the round trip between the two
+    (the compiled HLO of every family, eval graph and train step, under
+    ``dcn_impl`` xla and pallas_full alike: each ``ConvBN``'s BatchNorm
+    reads an f32 convolution or dot; ``tests/_torch_port.py: bn_inputs,
+    train_step_reading``).  So the conv runs in f32 on the bf16 values of
+    x and of the weight (``_ConvF32``, whose backward rounds as the train
+    step's), BatchNorm in f32 (its input gradient rounded as the
+    reference's, ``_flax_grads``), and its output is rounded to bf16.  The DCN
+    sites are not such a case: there the reference's explicit cast of the
+    DCN output to the compute dtype survives compilation, and BatchNorm
+    gets the rounded value (``models/dla.DeformConv``).  f32 inputs: the
+    conv, then BatchNorm."""
+    if not _narrow(x.dtype):
         return bn(conv(x))
-    w = conv.weight.to(x.dtype).float()
-    with tf32_convs(x):
-        if isinstance(conv, nn.ConvTranspose2d):
-            y = F.conv_transpose2d(x.float(), w, None, conv.stride,
-                                   conv.padding, conv.output_padding,
-                                   conv.groups, conv.dilation)
-        else:
-            y = conv._conv_forward(x.float(), w, None)
-    return bn(y).to(x.dtype)
+    transposed = isinstance(conv, nn.ConvTranspose2d)
+    y = _ConvF32.apply(x, conv.weight, transposed, conv.stride,
+                       conv.padding, conv.dilation,
+                       conv.output_padding if transposed else (0, 0),
+                       conv.groups)
+    return bn(y, x.dtype).to(x.dtype)
 
 
 class ConvBN(nn.Module):
@@ -261,14 +342,15 @@ class HeadStack(nn.Module):
 
     def _conv(self, name: str, x: torch.Tensor,
               round_sum: bool) -> torch.Tensor:
-        """The conv ``name`` with its bias.  Eval mode with a bf16 input
-        rounds where the reference's compiled bf16 graph rounds: the conv's
-        result to bf16, then the bias added to it, rounded again inside the
-        head (``round_sum``) and left in f32 at the output, whose cast to
-        f32 drops that rounding (the compiled HLO of dla_34 at 128x128).
-        cuDNN would add the bias before a single rounding."""
+        """The conv ``name`` with its bias.  A bf16 input rounds where the
+        reference's compiled bf16 graph rounds, in eval and in train mode:
+        the conv's result to bf16, then the bias added to it, rounded again
+        inside the head (``round_sum``) and left in f32 at the output, whose
+        cast to f32 drops that rounding (the compiled HLO of dla_34 at
+        128x128, eval graph and train step).  cuDNN would add the bias
+        before a single rounding."""
         conv = getattr(self, name)
-        if self.training or x.dtype == torch.float32:
+        if not _narrow(x.dtype):
             return conv(x)
         y = conv._conv_forward(x, conv.weight.to(x.dtype), None)
         bias = conv.bias.to(x.dtype).view(1, -1, 1, 1)

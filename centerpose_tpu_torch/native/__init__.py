@@ -1,7 +1,10 @@
-"""Native (C++) host code: the soft-NMS core and the GT-encoder fill loop.
+"""Native (C++) host code: the soft-NMS core, the GT-encoder fill loop
+and the encoder's image warp.
 
 Counterpart of ``centerpose_tpu/native``, with copies of its two sources
-(``soft_nms.cpp``, ``encoder.cpp``).  The shared library has a plain C ABI,
+(``soft_nms.cpp``, ``encoder.cpp``), and ``warp.cpp``: ``cv2.warpAffine``'s
+float32 arithmetic on uint8 images (``ops/image.warp_affine``), which the
+reference's encoder calls.  The shared library has a plain C ABI,
 is loaded with ctypes and is built with ``g++`` at first use into
 ``centerpose_tpu_torch/build/``.  Its file name carries a hash of the
 sources and the flags, so an edited source is rebuilt, and it is compiled
@@ -26,7 +29,7 @@ import numpy as np
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parent / "build"
-_SOURCES = ("soft_nms.cpp", "encoder.cpp")
+_SOURCES = ("soft_nms.cpp", "encoder.cpp", "warp.cpp")
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lib: Optional[ctypes.CDLL] = None
@@ -35,7 +38,7 @@ _build_failed = False
 
 
 def library_path() -> Path:
-    """The library's path: its name hashes the flags and both sources."""
+    """The library's path: its name hashes the flags and the sources."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
     for src in _SOURCES:
         h.update(src.encode())
@@ -90,6 +93,13 @@ def _load() -> Optional[ctypes.CDLL]:
             f32p, f32p, f32p, f32p, f32p,           # hm, hm_hp, wh, hps, reg
             i32p, f32p, f32p, f32p, i32p, f32p,     # ind..hp_mask
         ]
+        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        lib.warp_affine_u8.restype = None
+        lib.warp_affine_u8.argtypes = [
+            u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # src, h, w, c
+            f32p, ctypes.c_int,                              # map, lanes
+            u8p, ctypes.c_int, ctypes.c_int,                 # dst, oh, ow
+        ]
         _lib = lib
     return _lib
 
@@ -139,3 +149,19 @@ def encode_targets_native(bboxes: np.ndarray, joints: np.ndarray,
         out["hp_offset"].reshape(-1), out["hp_ind"], out["hp_mask"],
     )
     return True
+
+
+def warp_affine_native(img: np.ndarray, inv: np.ndarray, lanes: int,
+                       out_w: int, out_h: int) -> Optional[np.ndarray]:
+    """uint8 [H, W, C] ``img`` warped into [out_h, out_w, C] by the float32
+    destination -> source map ``inv`` [2, 3] (``ops/image.cv2_inverse``)
+    with cv2's arithmetic, or None when the library is unavailable."""
+    if not available():
+        return None
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w, c = img.shape
+    out = np.empty((out_h, out_w, c), np.uint8)
+    _lib.warp_affine_u8(img, h, w, c,
+                        np.ascontiguousarray(inv, np.float32).reshape(-1),
+                        lanes, out, out_h, out_w)
+    return out

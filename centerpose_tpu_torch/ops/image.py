@@ -10,8 +10,8 @@ host and copied so that they stay bit-exact given the same
 ``np.random.Generator`` stream.  ``warp_affine`` and ``resize_linear``
 replace the ``cv2.warpAffine`` and ``cv2.resize`` calls of the JAX package
 with tensor ops on the device: bilinear sampling with a zero border from
-the same 2x3 matrix (within one uint8 level of cv2), and bilinear resizing
-(bit-equal to cv2 on uint8 images).
+the same 2x3 matrix and bilinear resizing, each bit-equal to cv2 on uint8
+images.
 """
 
 from __future__ import annotations
@@ -113,38 +113,149 @@ def transform_preds(coords: np.ndarray, center, scale, output_size) -> np.ndarra
     return affine_transform_batch(coords.reshape(-1, 2), t).reshape(coords.shape)
 
 
+# cv2's warpAffine processes a row in vectors of this many float32 lanes
+# (its AVX-512 dispatch) and the pixels left over one by one, with another
+# order of operations (``_cv2_coords``)
+CV2_LANES = 16
+
+
+def _fma32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` on float32 values rounded once to float32, as a fused
+    multiply-add rounds it, on any device: the product is exact in float64
+    (two 24-bit significands) and the sum is rounded to float64, which
+    rounds to float32 as the exact sum does unless it lands exactly
+    halfway between two float32 values; there the error term of Knuth's
+    two-sum moves it one float64 ulp towards the exact sum first (no
+    double rounding; an exact tie keeps it)."""
+    p = a.double() * (b.double() if isinstance(b, torch.Tensor) else float(b))
+    p, c = (t.contiguous() for t in torch.broadcast_tensors(p, c.double()))
+    s = p + c
+    # halfway between two float32 values: the 29 bits float32 drops read
+    # 1 followed by zeros
+    tie = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    if s.device.type == "cpu":  # fix the few ties alone
+        i = tie.reshape(-1).nonzero().squeeze(1)
+        if i.numel():
+            p, c, flat = p.reshape(-1), c.reshape(-1), s.view(-1)
+            flat[i] = _nudge(p[i], c[i], flat[i])
+        return s.float()
+    return torch.where(tie, _nudge(p, c, s), s).float()
+
+
+def _nudge(p: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``s = p + c`` rounded, moved one ulp towards the exact sum where it
+    is inexact (Knuth's two-sum error term)."""
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    inf = torch.tensor(float("inf"), dtype=s.dtype, device=s.device)
+    return torch.where(err == 0, s,
+                       torch.nextafter(s, torch.where(err > 0, inf, -inf)))
+
+
+def cv2_inverse(trans: np.ndarray) -> np.ndarray:
+    """The destination -> source map as ``cv2.warpAffine`` inverts a
+    forward matrix (in float64, closed form), rounded to float32."""
+    m = np.asarray(trans, np.float64).reshape(2, 3)
+    d = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[1, 1] * d, m[0, 0] * d
+    a12, a21 = -m[0, 1] * d, -m[1, 0] * d
+    b1 = -a11 * m[0, 2] - a12 * m[1, 2]
+    b2 = -a21 * m[0, 2] - a22 * m[1, 2]
+    return np.array([[a11, a12, b1], [a21, a22, b2]]).astype(np.float32)
+
+
+def _cv2_coords(xs: torch.Tensor, ys: torch.Tensor, row) -> torch.Tensor:
+    """One source coordinate of cv2's float32 warp, ``row = (m0, m1, m2)``
+    of the inverse map, at destination columns ``xs`` and rows ``ys``: in
+    the vectors of ``CV2_LANES`` pixels ``fma(m0, x, m1 * y + m2)`` (the
+    row term rounded twice), in the row's last ``W mod CV2_LANES`` pixels
+    ``fma(x, m0, m1 * y) + m2``."""
+    m0, m1, m2 = (torch.tensor(float(v), dtype=torch.float32,
+                               device=xs.device) for v in row)
+    my = m1 * ys
+    out = _fma32(xs, m0, my + m2)
+    t0 = xs.shape[-1] // CV2_LANES * CV2_LANES
+    out[:, t0:] = _fma32(xs[:, t0:], m0, my[:, t0:]) + m2
+    return out
+
+
 def warp_affine(image: torch.Tensor, trans: np.ndarray, out_size) -> torch.Tensor:
-    """Warp an [H, W, C] image (any dtype, any device) by the 2x3 affine
-    ``trans`` (source pixel -> destination pixel) into ``out_size = (w, h)``:
-    each destination pixel samples the source bilinearly at the inverse-mapped
+    """Warp an [H, W, C] image (any device) by the 2x3 affine ``trans``
+    (source pixel -> destination pixel) into ``out_size = (w, h)``: each
+    destination pixel samples the source bilinearly at the inverse-mapped
     point, with zero outside the image (``cv2.warpAffine`` with
-    ``INTER_LINEAR`` and a constant 0 border, computed in float32 rather
-    than cv2's 1/32-pixel fixed point).  Returns float32 [h, w, C]."""
+    ``INTER_LINEAR`` and a constant 0 border).
+
+    A uint8 image comes back as uint8, bit-equal to cv2 5.0's warp, which
+    computes in float32:
+
+    - the inverse map in float64 in closed form (``D = 1 / (m00 m11 - m01
+      m10)``, ``A11 = m11 D``, ``A12 = -m01 D``, ``b1 = -A11 m02 - A12
+      m12``, ...), rounded to float32;
+    - the source point ``sx = fma(A11, x, A12 * y + b1)`` (and ``sy``
+      alike) in float32, in the row's vectors of ``CV2_LANES`` pixels, and
+      ``fma(x, A11, A12 * y) + b1`` in its last ``w mod CV2_LANES``
+      (``_cv2_coords``);
+    - ``x0 = floor(sx)``, ``a = sx - x0`` (and ``y0``, ``b``), taps
+      outside the image read 0;
+    - ``v0 = fma(a, p01 - p00, p00)``, ``v1 = fma(a, p11 - p10, p10)``,
+      ``v = fma(b, v1 - v0, v0)`` in float32 per channel, rounded to the
+      nearest (half to even) and saturated to [0, 255].
+
+    The fused multiply-adds are computed exactly (``_fma32``), not left to
+    the compiler.  Any other dtype is sampled in float32 with the
+    inverse from ``np.linalg.inv`` and the four weighted taps summed, and
+    comes back as float32 [h, w, C]."""
     out_w, out_h = int(out_size[0]), int(out_size[1])
     h, w, c = image.shape
-    m = np.vstack([np.asarray(trans, np.float64), [0.0, 0.0, 1.0]])
-    inv = torch.tensor(np.linalg.inv(m)[:2], dtype=torch.float32,
-                       device=image.device)
+    dev = image.device
     ys, xs = torch.meshgrid(
-        torch.arange(out_h, dtype=torch.float32, device=image.device),
-        torch.arange(out_w, dtype=torch.float32, device=image.device),
+        torch.arange(out_h, dtype=torch.float32, device=dev),
+        torch.arange(out_w, dtype=torch.float32, device=dev),
         indexing="ij")
-    sx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
-    sy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
+    if image.dtype == torch.uint8:
+        inv = cv2_inverse(trans)
+        sx = _cv2_coords(xs, ys, inv[0])
+        sy = _cv2_coords(xs, ys, inv[1])
+    else:
+        m = np.vstack([np.asarray(trans, np.float64), [0.0, 0.0, 1.0]])
+        inv = torch.tensor(np.linalg.inv(m)[:2], dtype=torch.float32,
+                           device=dev)
+        sx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
+        sy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
     x0 = torch.floor(sx)
     y0 = torch.floor(sy)
     wx1 = sx - x0
     wy1 = sy - y0
-    src = image.reshape(h * w, c).float()
-    out = torch.zeros((out_h * out_w, c), dtype=torch.float32,
-                      device=image.device)
+    # taps outside the image read the zero border of a padded copy: each
+    # tap clamps to [-1, w] x [-1, h] of the image, [0, w + 1] x [0, h + 1]
+    # of the copy
+    src = torch.zeros((h + 2, w + 2, c), dtype=image.dtype, device=dev)
+    src[1:-1, 1:-1] = image
+    src = src.reshape(-1, c)
+    xi = x0.clamp(-2, w + 1).long()  # far outside reads the border alike
+    yi = y0.clamp(-2, h + 1).long()
+
+    def tap(cy, cx):
+        idx = (((yi + cy).clamp_(-1, h) + 1) * (w + 2)
+               + (xi + cx).clamp_(-1, w) + 1).reshape(-1)
+        return src[idx].float()
+
+    if image.dtype == torch.uint8:
+        a = wx1.reshape(-1, 1)
+        b = wy1.reshape(-1, 1)
+        p00, p01, p10, p11 = (tap(cy, cx) for cy, cx in
+                              ((0, 0), (0, 1), (1, 0), (1, 1)))
+        v0 = _fma32(a, p01 - p00, p00)
+        v1 = _fma32(a, p11 - p10, p10)
+        v = _fma32(b, v1 - v0, v0)
+        return torch.round(v).clamp_(0, 255).to(torch.uint8).reshape(
+            out_h, out_w, c)
+    out = torch.zeros((out_h * out_w, c), dtype=torch.float32, device=dev)
     for cy, cx, wgt in ((0, 0, (1 - wy1) * (1 - wx1)), (0, 1, (1 - wy1) * wx1),
                         (1, 0, wy1 * (1 - wx1)), (1, 1, wy1 * wx1)):
-        yc = y0 + cy
-        xc = x0 + cx
-        valid = (yc >= 0) & (yc <= h - 1) & (xc >= 0) & (xc <= w - 1)
-        idx = (yc.clamp(0, h - 1) * w + xc.clamp(0, w - 1)).long().reshape(-1)
-        out += src[idx] * (wgt * valid.float()).reshape(-1, 1)
+        out += tap(cy, cx) * wgt.reshape(-1, 1)
     return out.reshape(out_h, out_w, c)
 
 

@@ -1,12 +1,24 @@
-"""Evaluation CLI, counterpart of ``tools/evaluate.py --synthetic``.
+"""Evaluation CLI, counterpart of ``tools/evaluate.py``.
 
-Runs the port's ``Detector`` over a synthetic val split, one image at a
-time (``Detector.run``: every scale, flip and the soft-NMS merge), and
-reports OKS keypoint AP:
+With ``--synthetic``, runs the port's ``Detector`` over a synthetic val
+split, one image at a time (``Detector.run``: every scale, flip and the
+soft-NMS merge), and reports OKS keypoint AP:
 
-    python -m centerpose_tpu_torch.tools.evaluate --synthetic --hard \\
-        --synthetic-size 512 --synthetic-seed 3 [--device cpu] \\
+    python -m centerpose_tpu_torch.tools.evaluate --synthetic --hard \
+        --synthetic-size 512 --synthetic-seed 3 [--device cpu] \
         [--json out.json] [KEY VALUE ...]
+
+Without ``--synthetic`` it evaluates the COCO 2017 keypoint val split
+under ``dataset.root`` (``data/coco.COCOHP(cfg, "val")``) through the
+pipelined harness (``eval/harness.evaluate_detector``, ``--workers``
+pre-process threads decoding the image files with cv2), as the
+reference does, and writes the detections to
+``<output_dir>/<exp_id>/results.json`` (``run_dir``: under
+``port_output`` for the default ``output_dir``, never the JAX package's
+``output/``):
+
+    python -m centerpose_tpu_torch.tools.evaluate --defaults \
+        dataset.root data/coco [--limit N] [--workers 4] [KEY VALUE ...]
 
 Without ``--cfg`` the config is the flagship's (dla_34 @512, bfloat16,
 ``pallas_full``), built in code; ``--defaults`` starts from the config
@@ -15,12 +27,12 @@ defaults instead (float32, ``xla``, ``head_conv`` 64), as the reference's
 test.model_path output/res18_hard_artifact/params_f16.npz``.
 ``test.model_path`` defaults to the committed dla_34 snapshot.  Weights are
 read from ``.npz`` snapshots only.
-Evaluating COCO annotation files waits for the COCO reader.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import time
@@ -31,7 +43,9 @@ import numpy as np
 import torch
 
 from centerpose_tpu_torch.config import Config, flagship_config, load_config
+from centerpose_tpu_torch.data.coco import COCOHP
 from centerpose_tpu_torch.data.synthetic import SyntheticEvalDataset
+from centerpose_tpu_torch.eval.harness import evaluate_detector
 from centerpose_tpu_torch.inference.detector import Detector
 from centerpose_tpu_torch.weights import state_dict_from_npz
 
@@ -47,6 +61,15 @@ def run_config(path: Optional[str], opts, defaults: bool = False) -> Config:
     if path or defaults:
         return load_config(path, list(opts or []))
     return flagship_config(list(opts or []))
+
+
+def run_dir(cfg: Config) -> str:
+    """``<output_dir>/<exp_id>``, where the default ``output_dir`` of
+    ``output`` (the JAX package's runs) becomes ``port_output``."""
+    out = cfg.output_dir
+    if os.path.normpath(out) == "output":
+        out = "port_output"
+    return os.path.join(out, cfg.exp_id)
 
 
 def load_detector(cfg: Config, device: str = "cuda") -> Detector:
@@ -131,6 +154,9 @@ def parse_args(argv=None):
     p.add_argument("--hard", action="store_true",
                    help="hard synthetic distribution (non-saturating)")
     p.add_argument("--limit", type=int, default=0, help="evaluate first N images")
+    p.add_argument("--workers", type=int, default=4,
+                   help="COCO files: the harness's pre-process threads "
+                        "(0: the serial Detector.run loop)")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--json", type=str, default="",
                    help="also write {stats, timing} to this path")
@@ -138,19 +164,30 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> Dict[str, float]:
+    """Evaluate; returns the stats."""
     args = parse_args(argv)
     no_tf32()
-    if not args.synthetic:
-        raise SystemExit("only --synthetic is ported; reading COCO "
-                         "annotation files waits for the COCO reader")
     cfg = run_config(args.cfg, args.opts, args.defaults)
-    dataset = SyntheticEvalDataset(args.synthetic_size,
-                                   seed=args.synthetic_seed, hard=args.hard)
     detector = load_detector(cfg, args.device)
-    n = min(len(dataset), args.limit) if args.limit else len(dataset)
-    results, times, wall = evaluate(detector, dataset, n, print_progress(n))
-    stats = dataset.run_eval(results, img_ids=list(results))
+    if args.synthetic:
+        dataset = SyntheticEvalDataset(args.synthetic_size,
+                                       seed=args.synthetic_seed,
+                                       hard=args.hard)
+        n = min(len(dataset), args.limit) if args.limit else len(dataset)
+        results, times, wall = evaluate(detector, dataset, n,
+                                        print_progress(n))
+        stats = dataset.run_eval(results, img_ids=list(results))
+    else:
+        dataset = COCOHP(cfg, "val")
+        n = min(len(dataset), args.limit) if args.limit else len(dataset)
+        items = itertools.islice(dataset.items(), n)
+        results, times, wall = evaluate_detector(
+            detector, items, workers=args.workers,
+            progress=print_progress(n))
+        stats = dataset.run_eval(results, save_dir=run_dir(cfg),
+                                 img_ids=list(results) if args.limit
+                                 else None)
     print(f"\nimages: {n}  wall: {wall:.1f}s  ({n / wall:.2f} img/s, "
           f"{device_name(args.device)})")
     for k in STAGES:
@@ -163,6 +200,7 @@ def main(argv=None) -> None:
         with open(args.json, "w") as f:
             json.dump(payload(stats, n, times, wall, cfg, args.hard,
                               args.device), f, indent=1)
+    return stats
 
 
 if __name__ == "__main__":

@@ -1,17 +1,24 @@
 """Training CLI, counterpart of ``tools/train.py``.
 
-    python -m centerpose_tpu_torch.tools.train --synthetic [--hard] \\
-        [--synthetic-size N] [--max-steps N] [--device cpu] \\
-        [--profile-dir DIR --profile-steps START:STOP] [KEY VALUE ...]
+    python -m centerpose_tpu_torch.tools.train [--synthetic [--hard] \
+        [--synthetic-size N]] [--cfg FILE | --defaults] [--max-steps N] \
+        [--device cpu] [--profile-dir DIR --profile-steps START:STOP] \
+        [KEY VALUE ...]
 
 Without ``--cfg`` the config is the flagship's (dla_34 @512, bfloat16,
-``pallas_full``), built in code; ``KEY VALUE`` pairs override it (e.g.
-``train.batch_size 8 train.epochs 2 model.input_res 64``).  As the
-reference: train on the seed-1 synthetic split and validate on seed 2;
-log each epoch's loss stats (read at its first step and every 20th),
-images/s and the time blocked on the input pipeline (``data_wait_s``,
-``data_wait_frac``); save ``model_last`` (and ``model_<epoch>`` under
-``train.save_all``) with its ``.meta.json``; every
+``pallas_full``), built in code; ``--defaults`` starts from the config
+defaults instead (float32, ``xla``, ``head_conv`` 64), as the reference's
+``load_config(None, opts)`` does, e.g. ``--defaults model.name res_18``
+trains any factory backbone at the yaml's settings without PyYAML;
+``KEY VALUE`` pairs override it (e.g. ``train.batch_size 8 train.epochs 2
+model.input_res 64``).  As the reference: with ``--synthetic`` train on
+the seed-1 synthetic split and validate on seed 2; without it train on
+``COCOHP(cfg, "train")`` and validate on ``"val"``, the COCO 2017
+keypoint files under ``dataset.root`` (``data/coco.py``; images decoded
+with cv2).  Log each epoch's loss stats (read at its first step and every
+20th), images/s and the time blocked on the input pipeline
+(``data_wait_s``, ``data_wait_frac``); save ``model_last`` (and
+``model_<epoch>`` under ``train.save_all``) with its ``.meta.json``; every
 ``train.val_intervals`` epochs compute the val loss and the keypoint AP of
 the current weights (``eval/harness.evaluate_detector`` on up to
 ``train.val_ap_limit`` images) and save ``model_best`` on a better AP;
@@ -20,9 +27,8 @@ to ``<output_dir>/<exp_id>``, where an ``output_dir`` of ``output`` (the
 default, the JAX package's) becomes ``port_output``: by default
 ``port_output/default``.
 
-Not ported: training on COCO files (needs the COCOHP reader and image
-decoding, ROADMAP queue 1, item 8) and ``--multihost`` (data-parallel
-training, item 7).
+Not ported: ``--multihost`` (data-parallel training, ROADMAP queue 1,
+item 7).
 """
 
 from __future__ import annotations
@@ -34,13 +40,14 @@ from typing import Dict, List, Optional
 
 import torch
 
-from centerpose_tpu_torch.config import flagship_config, load_config
+from centerpose_tpu_torch.data.coco import COCOHP
 from centerpose_tpu_torch.data.loader import DataLoader, prefetch_to_device
 from centerpose_tpu_torch.data.synthetic import (SyntheticEvalDataset,
                                                  SyntheticPoseDataset)
 from centerpose_tpu_torch.eval.harness import evaluate_detector
 from centerpose_tpu_torch.inference.detector import Detector
-from centerpose_tpu_torch.tools.evaluate import device_name, no_tf32
+from centerpose_tpu_torch.tools.evaluate import (device_name, no_tf32,
+                                                 run_config, run_dir)
 from centerpose_tpu_torch.train.checkpoints import (ckpt_meta,
                                                     load_checkpoint,
                                                     restore_state,
@@ -56,8 +63,12 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="centerpose_tpu_torch training")
     p.add_argument("--cfg", type=str, default=None,
                    help="experiment yaml (default: the flagship, in code)")
+    p.add_argument("--defaults", action="store_true",
+                   help="without --cfg: start from the config defaults, "
+                        "not the flagship")
     p.add_argument("--synthetic", action="store_true",
-                   help="use the synthetic dataset (the only one ported)")
+                   help="use the synthetic dataset (else the COCO files "
+                        "under dataset.root)")
     p.add_argument("--synthetic-size", type=int, default=256)
     p.add_argument("--hard", action="store_true",
                    help="hard synthetic distribution (crowding, occlusion, "
@@ -130,26 +141,20 @@ def main(argv=None) -> Dict:
     if args.multihost:
         raise SystemExit("--multihost is not ported: data-parallel training "
                          "is ROADMAP queue 1, item 7")
-    if not args.synthetic:
-        raise SystemExit("only --synthetic is ported: training on COCO files "
-                         "needs the COCOHP reader and image decoding "
-                         "(ROADMAP queue 1, item 8)")
     no_tf32()
-    cfg = (load_config(args.cfg, args.opts) if args.cfg
-           else flagship_config(args.opts))
+    cfg = run_config(args.cfg, args.opts, args.defaults)
     device = resolve_device(args.device)
-    # the JAX package's runs write under output/: the port's go elsewhere
-    out = cfg.output_dir
-    if os.path.normpath(out) == "output":
-        out = "port_output"
-    logger = Logger(cfg, os.path.join(out, cfg.exp_id))
+    if args.synthetic:
+        train_ds = SyntheticPoseDataset(args.synthetic_size, seed=1,
+                                        hard=args.hard)
+        val_n = max(32, args.synthetic_size // 8)
+        val_ds = SyntheticPoseDataset(val_n, seed=2, hard=args.hard)
+        ap_dataset = SyntheticEvalDataset(val_n, seed=2, hard=args.hard)
+    else:
+        train_ds = COCOHP(cfg, "train")
+        val_ds = ap_dataset = COCOHP(cfg, "val")  # AP on image paths
+    logger = Logger(cfg, run_dir(cfg))
     logger.write(f"device: {device_name(str(device))}")
-
-    train_ds = SyntheticPoseDataset(args.synthetic_size, seed=1,
-                                    hard=args.hard)
-    val_n = max(32, args.synthetic_size // 8)
-    val_ds = SyntheticPoseDataset(val_n, seed=2, hard=args.hard)
-    ap_dataset = SyntheticEvalDataset(val_n, seed=2, hard=args.hard)
     logger.write(f"train {len(train_ds)} images, val {len(val_ds)} images")
 
     train_loader = DataLoader(train_ds, cfg, batch_size=cfg.train.batch_size,

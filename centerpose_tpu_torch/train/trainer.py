@@ -11,12 +11,18 @@ Counterpart of ``centerpose_tpu/train/trainer.py`` on one device:
   on, inclusive), wrapped in ``MultiSteps`` when ``train.grad_accum`` > 1
   (the mean of k micro-batch gradients, one update every k calls; the
   schedule counts updates);
-- ``Trainer``: the train state (dla_34 in float32 master parameters, the
-  compute dtype cast at use, optional snapshot weights; ``state`` and
+- ``Trainer``: the train state (any name of ``models/factory.
+  MODEL_FACTORY``: dla_34, the resnets, hrnets, mobilenets, shufflenetv2,
+  hardnet, darknet, efficientnet; float32 master parameters, the compute
+  dtype cast at use, optional snapshot weights; ``state`` and
   ``load_state`` for checkpoints), ``train_step``
   (``make_train_step``: forward in train mode, ``multi_pose_loss``,
-  backward, update; BatchNorm statistics advance on every call) and
-  ``eval_step`` (``make_eval_step``: running statistics, no update).
+  backward, update; BatchNorm statistics advance on every call, those
+  whose output no loss term reads too, as the reference's train step
+  returns them; the parameters feeding only those get no gradient and
+  keep no optimizer state, where optax's zero gradient leaves them as
+  they were too) and ``eval_step`` (``make_eval_step``: running
+  statistics, no update).
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 """

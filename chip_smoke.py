@@ -41,7 +41,10 @@ took:
 5. training model check: one training step at 512x512, batch 2, float32,
    from the snapshot, kernel path against plain path: the loss, every
    parameter's gradient and the BatchNorm statistics after the step; 16 K2
-   and 16 backward launches per step;
+   and 16 backward launches per step; then the same in bfloat16 (tolerances
+   TOL_TRAIN_BF16), with a probe of the repaired conv -> BatchNorm
+   hand-off (``models/common._ConvF32``): every conv of it ran its backward
+   on f32 operands with TF32 on (bf16 values read exactly), none in bf16;
 6. serving, a main path: ``Detector.run`` on 4 images and
    ``Detector.run_batch`` at batch 8, with the launch counts of that run;
 7. trace: one batch-8 ``run_batch`` under ``torch.profiler``, device time
@@ -87,7 +90,20 @@ took:
    epoch with 8 workers equal those with none byte for byte; the native
    library is built and its encoder matches the numpy path within 1e-5
    over 64 examples.  It prints each epoch's images/s and
-   ``data_wait_frac``.
+   ``data_wait_frac``;
+13. backbones (training), a main path: res_18, hrnet_w32 and mobilenetv3
+   from their snapshots.  A device check first: one step at 128x128,
+   batch 2, float32 (TF32 off) on the card and on the host CPU from the
+   same weights and batch, the loss, every gradient and the BatchNorm
+   statistics after the step held at TOL_BB_TRAIN; then the ``Trainer`` at
+   512x512, batch 8, compact wire, on batches of the port's encoder, in
+   the config ``tools/train.py --defaults model.name NAME`` builds
+   (float32, TF32 off) and in bfloat16: one warm-up step, 6 timed steps
+   (ms per step, images/s), 10 steps on one fixed batch whose loss must
+   fall, and no DCN kernel launched.
+
+``python3 chip_smoke.py --only training`` runs the build, the training
+main path and its trace alone (to compare two trees in one call).
 
 Then it prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -155,6 +171,26 @@ TOL_TRAIN_LOSS = 1e-5
 TOL_TRAIN_STATS = 1e-4
 TOL_TRAIN_GRAD_L2 = 1e-3
 TRAIN_BATCH = 8  # bench.py's train_batch
+# The bfloat16 training step, kernel path against plain path (same weights
+# and batch): both round each DCN output, conv and BatchNorm output to
+# bf16 at the same points and differ in the f32 sums of K2 and of the
+# backward kernels, which move a value across a bf16 rounding boundary
+# now and then; the 16 sites and the depth carry that to every tensor.
+# The loss and the BatchNorm statistics (max rel) read 8.5e-5 and 2.6e-5
+# on an H100; the gradients are held by their relative L2 over the whole
+# model and the median of the tensors' (per tensor the worst is a bias
+# gradient that sums cancelling terms: hp_offset_out.bias at 0.19, the
+# median 1.4e-2).
+TOL_TRAIN_BF16 = {"loss": 1e-3, "stats": 1e-3, "grad_l2": 5e-2}
+# The backbones' training device check: float32 with TF32 off, one step
+# at 128x128, batch 2, the card's cuDNN against the host CPU's oneDNN
+# convs (another summation order); max rel for the loss and the
+# statistics, relative L2 of all the gradients together and the median of
+# the tensors' for the gradients (per tensor, hrnet_w32's worst, a
+# BatchNorm bias deep in branch 1, read 3.4e-3 with a median of 1.7e-4 on
+# an H100).
+TOL_BB_TRAIN = {"loss": 1e-4, "stats": 1e-3, "grad_l2": 1e-3}
+BB_TRAIN_RES, BB_TRAIN_STEPS, BB_FIT_STEPS = 512, 6, 10
 # Evaluation: the hard benchmark (512 scenes of seed 3), OKS AP of the
 # bf16 pallas_full Detector against the reference's AP on the same
 # snapshot, read from its results file at run time.  0.002 is ROADMAP's
@@ -907,10 +943,10 @@ def train_batch(cfg, seed: int, n: int):
     return stack_batch(examples)
 
 
-def train_model_check(state_dict):
-    """One float32 training step at 512x512, batch 2, kernel path against
-    plain path: loss, gradients, BatchNorm statistics, launch counts."""
-    import numpy as np
+def _train_step_pair(cfg, state_dict, batch):
+    """One training step (backward only) on the kernel path and on the
+    plain path (``ops/dcn.dcn_v2`` at every site) from the same weights:
+    [(loss, gradients, BatchNorm statistics, launch counts)] of each."""
     import torch
 
     from centerpose_tpu_torch.models import dla
@@ -918,8 +954,6 @@ def train_model_check(state_dict):
     from centerpose_tpu_torch.ops.dcn import dcn_v2 as dcn_v2_plain
     from centerpose_tpu_torch.train.trainer import Trainer
 
-    cfg = train_cfg("float32")
-    batch = train_batch(cfg, 5, 2)
     results = []
     for plain in (False, True):
         trainer = Trainer(cfg, state_dict, device="cuda")
@@ -941,27 +975,95 @@ def train_model_check(state_dict):
                   if n.endswith(("running_mean", "running_var"))}
         results.append((float(stats["loss"]), grads, bstats, counts))
         del trainer
-    (loss_k, g_k, s_k, c_k), (loss_p, g_p, s_p, _) = results
+    return results
+
+
+def _step_gaps(a, b):
+    """(loss rel err, BatchNorm statistics max rel err, gradient rows
+    [(L2 rel, max rel, name)] worst first, the relative L2 of all the
+    gradients together) of step ``a`` against ``b``; the DCN biases, which
+    feed BatchNorm on batch statistics (zero up to rounding), are left
+    out."""
+    import torch
+
+    (loss_a, g_a, s_a), (loss_b, g_b, s_b) = a[:3], b[:3]
+    rows, diff2, norm2 = [], 0.0, 0.0
+    for name, gb in g_b.items():
+        ga = g_a[name]
+        check((ga is None) == (gb is None), f"gradient presence of {name}")
+        if gb is None:
+            continue
+        check(bool(torch.isfinite(ga).all()), f"gradient of {name} finite")
+        if name.endswith("DCN_0.bias"):
+            continue
+        ga, gb = ga.float().cpu(), gb.float().cpu()
+        diff2 += float((ga - gb).double().square().sum())
+        norm2 += float(gb.double().square().sum())
+        l2 = ((ga - gb).norm() / gb.norm().clamp_min(1e-30)).item()
+        mx = ((ga - gb).abs().max() / gb.abs().max().clamp_min(1e-30)).item()
+        rows.append((l2, mx, name))
+    rows.sort(reverse=True)
+    stat = max(((s_a[n].cpu() - s_b[n].cpu()).abs().max()
+                / s_b[n].cpu().abs().max().clamp_min(1e-30)).item()
+               for n in s_b)
+    return (abs(loss_a - loss_b) / abs(loss_b), stat, rows,
+            (diff2 / max(norm2, 1e-300)) ** 0.5)
+
+
+def _tf32_probe():
+    """Wrap ``models/common.tf32_convs``, which the repaired conv ->
+    BatchNorm hand-off (``_ConvF32``) enters in its forward and in its
+    backward; returns (records [(backward?, x dtype, TF32 on inside)],
+    undo)."""
+    import contextlib
+
+    import torch
+
+    from centerpose_tpu_torch.models import common
+
+    seen, in_backward = [], [False]
+    orig, orig_backward = common.tf32_convs, common._ConvF32.backward
+
+    @contextlib.contextmanager
+    def spy(x):
+        with orig(x):
+            seen.append((in_backward[0], x.dtype,
+                         torch.backends.cudnn.allow_tf32))
+            yield
+
+    def backward(ctx, gy):
+        in_backward[0] = True
+        try:
+            return orig_backward(ctx, gy)
+        finally:
+            in_backward[0] = False
+
+    common.tf32_convs = spy
+    common._ConvF32.backward = staticmethod(backward)
+
+    def undo():
+        common.tf32_convs = orig
+        common._ConvF32.backward = staticmethod(orig_backward)
+    return seen, undo
+
+
+def train_model_check(state_dict):
+    """One training step at 512x512, batch 2, kernel path against plain
+    path, in float32 (loss, gradients, BatchNorm statistics, launch
+    counts) and in bfloat16 (the same at TOL_TRAIN_BF16, with the TF32
+    probe of the conv -> BatchNorm hand-off's backward)."""
+    import numpy as np
+    import torch
+
+    cfg = train_cfg("float32")
+    batch = train_batch(cfg, 5, 2)
+    (loss_k, g_k, s_k, c_k), plain = _train_step_pair(cfg, state_dict, batch)
     want = {(cin, cout, hw, hw): n for cin, cout, hw, n in SITES}
     check(c_k[0] == 16 and c_k[1] == 16 and c_k[2] == want and c_k[3] == want,
           f"training step launches: K2 {c_k[0]}, backward {c_k[1]}, by site "
           f"{c_k[2]} / {c_k[3]}")
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    grad_rows = []
-    for name, gp in g_p.items():
-        gk = g_k[name]
-        check((gk is None) == (gp is None), f"gradient presence of {name}")
-        if gp is None:
-            continue
-        check(bool(torch.isfinite(gk).all()), f"gradient of {name} finite")
-        if name.endswith("DCN_0.bias"):
-            continue  # feeds BatchNorm on batch statistics: zero + rounding
-        l2 = ((gk - gp).norm() / gp.norm().clamp_min(1e-30)).item()
-        mx = ((gk - gp).abs().max() / gp.abs().max().clamp_min(1e-30)).item()
-        grad_rows.append((l2, mx, name))
-    grad_rows.sort(reverse=True)
-    stat_err = max(((s_k[n] - s_p[n]).abs().max()
-                    / s_p[n].abs().max().clamp_min(1e-30)).item() for n in s_p)
+    loss_rel, stat_err, grad_rows, _ = _step_gaps((loss_k, g_k, s_k), plain)
+    loss_p = plain[0]
     n_max_over = sum(1 for _, mx, _ in grad_rows if mx > 1e-4)
     say(f"  train step float32 512x512 batch 2: loss kernel {loss_k:.6f} "
         f"plain {loss_p:.6f} (rel {loss_rel:.2e}); BatchNorm statistics max "
@@ -975,6 +1077,45 @@ def train_model_check(state_dict):
     check(stat_err <= TOL_TRAIN_STATS, f"BatchNorm stats rel err {stat_err}")
     check(grad_rows[0][0] <= TOL_TRAIN_GRAD_L2,
           f"gradient L2 rel err {grad_rows[0]}")
+
+    cfg = train_cfg("bfloat16")
+    seen, undo = _tf32_probe()
+    try:
+        kernel, plain = _train_step_pair(cfg, state_dict, batch)
+    finally:
+        undo()
+    check(kernel[3][0] == 16 and kernel[3][1] == 16,
+          f"bf16 training step launches: K2 {kernel[3][0]}, backward "
+          f"{kernel[3][1]}")
+    loss_rel, stat_err, grad_rows, total = _step_gaps(kernel, plain)
+    median = float(np.median([r[0] for r in grad_rows]))
+    fwd = [r for r in seen if not r[0]]
+    bwd = [r for r in seen if r[0]]
+    say(f"  train step bfloat16 512x512 batch 2: loss kernel {kernel[0]:.6f} "
+        f"plain {plain[0]:.6f} (rel {loss_rel:.2e}, tolerance "
+        f"{TOL_TRAIN_BF16['loss']:.0e}); BatchNorm statistics max rel err "
+        f"{stat_err:.2e} ({TOL_TRAIN_BF16['stats']:.0e}); gradients: L2 rel "
+        f"err of all {total:.2e}, median of the tensors' {median:.2e} (each "
+        f"{TOL_TRAIN_BF16['grad_l2']:.0e}), worst tensor {grad_rows[0][0]:.2e} "
+        f"({grad_rows[0][2]}); conv -> "
+        f"BatchNorm hand-offs: {len(fwd)} forward and {len(bwd)} backward "
+        f"entries over the two steps, backward on bf16 values with TF32 on "
+        f"in {sum(1 for r in bwd if r[1] == torch.bfloat16 and r[2])}")
+    check(loss_rel <= TOL_TRAIN_BF16["loss"],
+          f"bf16 train loss rel err {loss_rel:.3e}")
+    check(stat_err <= TOL_TRAIN_BF16["stats"],
+          f"bf16 BatchNorm stats rel err {stat_err:.3e}")
+    check(total <= TOL_TRAIN_BF16["grad_l2"]
+          and median <= TOL_TRAIN_BF16["grad_l2"],
+          f"bf16 gradient L2 rel err: all {total:.3e}, median {median:.3e}")
+    # the hand-offs whose output no loss term reads (the project convs of
+    # the level 3 and 4 trees, kept for their BatchNorm statistics) have
+    # no backward
+    check(len(fwd) - 4 <= len(bwd) <= len(fwd)
+          and all(r[1] == torch.bfloat16 and r[2] for r in bwd),
+          f"conv -> BatchNorm backward: {len(bwd)} of {len(fwd)} entered, "
+          "each must read bf16 values with TF32 on")
+    check(not torch.backends.cudnn.allow_tf32, "TF32 left on")
 
 
 def training(state_dict):
@@ -1267,6 +1408,117 @@ def backbones(ds, card: str) -> None:
         del det
 
 
+def backbone_train_cfg(name: str, *opts):
+    """The config ``tools/train.py --defaults model.name NAME`` builds
+    (the defaults: float32, ``head_conv`` 64), compact wire, with
+    ``opts``."""
+    from centerpose_tpu_torch.tools.evaluate import run_config
+
+    return run_config(None, ["model.name", name, "train.wire", "compact",
+                             *opts], defaults=True)
+
+
+def backbone_training(card: str) -> None:
+    """Training the other backbones, a main path: for each snapshot
+    backbone, a device check (one float32 step at 128x128, batch 2, card
+    against host CPU), then the Trainer at 512x512, batch 8, compact wire,
+    float32 and bfloat16 (warm-up, 6 timed steps, 10 on a fixed batch
+    whose loss must fall); no DCN kernel may launch."""
+    import numpy as np
+    import torch
+
+    from centerpose_tpu_torch.config import update_config
+    from centerpose_tpu_torch.ops import dcn_cuda as dc
+    from centerpose_tpu_torch.train.trainer import Trainer
+    from centerpose_tpu_torch.weights import state_dict_from_npz
+
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    small = backbone_train_cfg("res_18", "model.input_res", "128",
+                               "model.output_res", "32")
+    small_batch = train_batch(small, 21, 2)
+    cfg0 = backbone_train_cfg("res_18")
+    check(cfg0.model.compute_dtype == "float32" and cfg0.model.head_conv == 64
+          and cfg0.model.input_res == BB_TRAIN_RES
+          and cfg0.train.wire == "compact", "backbone training config")
+    t0 = time.perf_counter()
+    batches = [train_batch(cfg0, 300 + i, TRAIN_BATCH)
+               for i in range(1 + BB_TRAIN_STEPS)]
+    encode_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    check(batches[0]["input"].dtype == np.uint8
+          and batches[0]["input"].shape == (TRAIN_BATCH, BB_TRAIN_RES,
+                                            BB_TRAIN_RES, 3),
+          "compact-wire batch")
+    for name, art in BACKBONES.items():
+        sd = state_dict_from_npz(
+            str(ROOT / "output" / f"{art}_hard_artifact" / "params_f16.npz"))
+        cfg = backbone_train_cfg(name, "model.input_res", "128",
+                                 "model.output_res", "32")
+        steps = []
+        for device in ("cuda", "cpu"):
+            trainer = Trainer(cfg, sd, device=device)
+            stats = trainer.backward(small_batch)
+            grads = {n: (p.grad.detach().float().cpu().clone()
+                         if p.grad is not None else None)
+                     for n, p in trainer.model.named_parameters()}
+            check(trainer.optimizer.step(), f"{name}: no update")
+            bstats = {n: t.detach().cpu().clone()
+                      for n, t in trainer.model.state_dict().items()
+                      if n.endswith(("running_mean", "running_var"))}
+            steps.append((float(stats["loss"]), grads, bstats))
+            del trainer
+        loss_rel, stat_err, rows, total = _step_gaps(*steps)
+        median = float(np.median([r[0] for r in rows]))
+        say(f"  backbone {name} train step float32 128x128 batch 2, card "
+            f"against host CPU: loss {steps[0][0]:.6f} / {steps[1][0]:.6f} "
+            f"(rel {loss_rel:.2e}); BatchNorm statistics max rel err "
+            f"{stat_err:.2e}; gradients of {len(rows)} tensors: L2 rel err "
+            f"of all {total:.2e}, median of the tensors' {median:.2e}, worst "
+            f"tensor {rows[0][0]:.2e} ({rows[0][2]}) (tolerances "
+            f"{TOL_BB_TRAIN})")
+        check(loss_rel <= TOL_BB_TRAIN["loss"]
+              and stat_err <= TOL_BB_TRAIN["stats"]
+              and total <= TOL_BB_TRAIN["grad_l2"]
+              and median <= TOL_BB_TRAIN["grad_l2"],
+              f"{name}: card against host CPU: loss {loss_rel:.3e}, "
+              f"statistics {stat_err:.3e}, gradients all {total:.3e}, "
+              f"median {median:.3e}")
+
+        for dtype in ("float32", "bfloat16"):
+            cfg = update_config(backbone_train_cfg(name),
+                                {"model.compute_dtype": dtype})
+            trainer = Trainer(cfg, sd, device="cuda")
+            dc.reset_launch_counts()
+            first = float(trainer.train_step(batches[0])["loss"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = [trainer.train_step(b)["loss"] for b in batches[1:]]
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / BB_TRAIN_STEPS
+            losses = [first] + [float(v) for v in losses]
+            fit = [float(trainer.train_step(batches[1])["loss"])
+                   for _ in range(BB_FIT_STEPS)]
+            torch.cuda.synchronize()
+            launched = sum(fn.launches for fn in dc.COUNTED)
+            n_steps = 1 + BB_TRAIN_STEPS + BB_FIT_STEPS
+            say(f"  backbone {name} train batch {TRAIN_BATCH} "
+                f"{BB_TRAIN_RES}x{BB_TRAIN_RES} {dtype}: {step_ms:.2f} ms per "
+                f"step ({TRAIN_BATCH * 1e3 / step_ms:.2f} images/s, host "
+                f"clock, synchronised, {BB_TRAIN_STEPS} steps on fresh "
+                f"batches); losses " + " ".join(f"{v:.3f}" for v in losses)
+                + f"; fixed batch {fit[0]:.4f} -> {fit[-1]:.4f}; DCN "
+                f"launches {launched}; {card}")
+            check(np.isfinite(losses + fit).all(), f"{name} {dtype} losses")
+            check(fit[-1] < fit[0],
+                  f"{name} {dtype}: loss did not fall on a fixed batch: {fit}")
+            check(launched == 0, f"{name} {dtype}: {launched} DCN launches")
+            check(trainer.optimizer.updates == n_steps, "one update a step")
+            del trainer
+        torch.cuda.empty_cache()
+    say(f"  host encode {encode_ms:.1f} ms per batch of {TRAIN_BATCH} "
+        "(before the steps, not in the step time)")
+
+
 def _bit_equal(a, b) -> bool:
     """Nested states (dicts, lists, tensors, numbers) equal bit for bit."""
     import torch
@@ -1445,6 +1697,20 @@ def training_cli(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def only_training(card: str) -> int:
+    """``--only training``: the build, the training main path and its
+    trace (no result line)."""
+    from centerpose_tpu_torch.weights import state_dict_from_npz
+
+    phase("build CUDA library", build)
+    state_dict = state_dict_from_npz(str(NPZ))
+    _, trainer, fixed = phase("training (main path)",
+                              lambda: training(state_dict))
+    phase("training trace", lambda: train_trace(trainer, fixed))
+    say(card)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -1469,6 +1735,9 @@ def main() -> int:
     card = phase("card", card_line)
     say(f"  {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
+    if sys.argv[1:] == ["--only", "training"]:
+        return only_training(card)
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     phase("build CUDA library", build)
     entries = phase("kernel check", kernel_check)
     train_entries = phase("training kernel check", train_kernel_check)
@@ -1493,6 +1762,7 @@ def main() -> int:
     phase("backbones (serving, main path)", lambda: backbones(ds, card))
     del ds
     phase("training CLI (main path)", lambda: training_cli(card))
+    phase("backbones (training, main path)", lambda: backbone_training(card))
     for site, entry in entries.items():
         entry["launches"] = launches.get(site, 0)
         check(entry["launches"] > 0, f"K1 never launched at site {site}")

@@ -1,0 +1,287 @@
+"""One train step of a non-DLA family of the model factory, the port
+against the reference (``check_train_step``; the test files
+``tests/test_torch_train_backbones*.py`` split the 9 families between
+them): at 64x64, batch 2, float32, on seeded weights in the reference's
+variable tree passed across as an .npz and a compact-wire batch that both
+encoders make bit-equal, the loss, every gradient and the BatchNorm
+statistics after the step against the reference's float64 ones (as
+``tests/test_torch_train.py`` holds dla_34), and Adam's update against
+``jax.value_and_grad`` and optax; then a checkpoint round trip of the
+stepped trainer."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import torch
+
+import centerpose_tpu.losses as jlosses
+import centerpose_tpu.native as jnative
+from centerpose_tpu.config import default_config as j_default
+from centerpose_tpu.config import update_config as j_update
+from centerpose_tpu.data.encode import encode_example as j_encode
+from centerpose_tpu.models.factory import create_model as j_create
+from centerpose_tpu.train.trainer import make_optimizer as j_make_optimizer
+from centerpose_tpu.train.trainer import unpack_batch as j_unpack
+from centerpose_tpu_torch.config import default_config, update_config
+from centerpose_tpu_torch.data.encode import encode_example, stack_batch
+from centerpose_tpu_torch.data.synthetic import make_person
+from centerpose_tpu_torch.train import checkpoints as ckpt
+from centerpose_tpu_torch.train.trainer import Trainer
+from centerpose_tpu_torch.weights import npz_arrays
+
+from _torch_port import (FAST_COMPILE, bit_equal, port_state_dict, rel_err,
+                         seeded, shapes)
+
+RES = 64
+# the non-DLA families of the model factory
+FAMILIES = ["res_18", "res_50", "mobilenetv2", "mobilenetv3", "hrnet_w32",
+            "shufflenetv2", "hardnet", "darknet", "efficientnet"]
+OV = {"train": {"wire": "compact"}, "dataset": {"max_objs": 8}}
+
+
+def _overrides(name: str) -> dict:
+    return {"model": {"name": name, "input_res": RES, "output_res": RES // 4},
+            **OV}
+
+
+def _flat(tree, group, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}['{k}']"
+        if hasattr(v, "items"):
+            out.update(_flat(v, group, path))
+        else:
+            out[f"{group}:{path}"] = np.asarray(v)
+    return out
+
+
+def _variables(name: str, jcfg) -> dict:
+    """Seeded variables (``_torch_port.seeded``) with the heads' output
+    layers at the reference's init (kernels of std 0.001, the prior bias
+    -2.19 on ``hm`` and ``hm_hp``, 0 elsewhere): logits near the prior,
+    far from the clamp of ``sigmoid_clamped``, where the focal loss's
+    gradient switches off (seeded He-normal output layers put logits
+    there, and a rounding then switches a pixel's gradient on or off)."""
+    from flax.core import unfreeze
+
+    v = unfreeze(seeded(shapes(j_create(jcfg), jnp.zeros((1, RES, RES, 3))),
+                        0))
+    rng = np.random.default_rng(1)
+    for head, leaf in v["params"]["HeadStack_0"].items():
+        if head.endswith("_out"):
+            leaf["kernel"] = jnp.asarray(
+                rng.normal(size=leaf["kernel"].shape) * 0.001, jnp.float32)
+            leaf["bias"] = jnp.full(
+                leaf["bias"].shape, -2.19 if head in ("hm_out", "hm_hp_out")
+                else 0.0, jnp.float32)
+    return v
+
+
+def _batch(jcfg, tcfg) -> dict:
+    """Two compact-wire examples of synthetic persons from the port's
+    encoder, asserted bit-equal to the reference's numpy encoder's."""
+    rng = np.random.default_rng(0)
+    examples = []
+    saved = jnative.available
+    jnative.available = lambda: False  # the numpy encoder, as the port's
+    try:
+        for i in range(2):
+            img = rng.integers(0, 256, (120, 160, 3), np.uint8)
+            anns = [make_person(rng, 160, 120)[0] for _ in range(2)]
+            want = j_encode(img, anns, jcfg, np.random.default_rng(10 + i),
+                            True)
+            got = encode_example(img, anns, tcfg,
+                                 np.random.default_rng(10 + i), True)
+            assert got.keys() == want.keys()
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+            examples.append(got)
+    finally:
+        jnative.available = saved
+    return stack_batch(examples)
+
+
+def _reference_step(jcfg, variables, batch, dtype) -> dict:
+    """The reference's train step with its model in ``dtype`` (the heads
+    cast to f32 for the loss, as the model does): the loss terms, the
+    gradients and the BatchNorm statistics after it."""
+    model = j_create(jcfg).clone(dtype=dtype)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items() if k not in "cs"}
+
+    def loss_fn(params, bs, b):
+        b = j_unpack(b, jcfg)
+        out, mut = model.apply({"params": params, "batch_stats": bs},
+                               b["input"].astype(dtype), train=True,
+                               mutable=["batch_stats"])
+        out = {k: v.astype(jnp.float32) for k, v in out.items()}
+        loss, stats = jlosses.multi_pose_loss(out, b, jcfg)
+        return loss, (stats, mut["batch_stats"])
+
+    with jax.enable_x64(dtype == jnp.float64):
+        v = jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a), dtype),
+                                   variables)
+        args = (v["params"], v["batch_stats"], jbatch)
+        step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+        # f64 convs run as compiled loops, a few times slower when LLVM
+        # does not optimise them than the compile time it saves
+        opts = FAST_COMPILE if dtype == jnp.float32 else None
+        (_, (stats, bs)), grads = step.lower(*args).compile(
+            compiler_options=opts)(*args)
+        return {"stats": {k: float(x) for k, x in stats.items()},
+                "grads": _flat(grads, "params"),
+                "batch_stats": _flat(bs, "batch_stats")}
+
+
+def _gaps(stats, grads, bstats, ref64) -> dict:
+    """How far a step (loss terms, gradients, BatchNorm statistics) lies
+    from the reference's float64 one: the loss's and the worst term's
+    relative error, the gradients' relative L2 over the model and the
+    worst tensor's, the statistics' worst relative error.  Gradients that
+    are rounding noise around zero (below 1e-6 of the model's largest:
+    a bias under a BatchNorm's batch statistics) are left out."""
+    g64 = ref64["grads"]
+    g_all = max(np.abs(v).max() for v in g64.values())
+    live = [k for k in g64 if np.abs(g64[k]).max() > 1e-6 * g_all]
+
+    def dist(keys):
+        num = sum(np.sum((grads[k].astype(np.float64) - g64[k]) ** 2)
+                  for k in keys)
+        return float(np.sqrt(num / sum(np.sum(g64[k] ** 2) for k in keys)))
+
+    want = ref64["stats"]
+    return {
+        "loss": abs(stats["loss"] - want["loss"]) / abs(want["loss"]),
+        "term": max(abs(stats[k] - v) / max(abs(v), 1.0)
+                    for k, v in want.items()),
+        "grads": dist(live),
+        "tensor": max(dist([k]) for k in live),
+        "stats": max(rel_err(bstats[k], v)
+                     for k, v in ref64["batch_stats"].items()),
+    }
+
+
+# Where the step is well conditioned the port's f32 step lies this close to
+# the reference's f64 one (the loss terms' tolerances as dla_34's in
+# tests/test_torch_train.py; gradients 1e-4 over the model).
+TOL = {"loss": 1e-5, "term": 5e-5, "grads": 1e-4, "tensor": 1e-3,
+       "stats": 1e-5}
+
+
+def check_train_step(name: str, tmp_path) -> None:
+    """One step of ``name`` in both packages.
+
+    Against the reference's float64 step: the loss, every gradient and the
+    BatchNorm statistics within ``TOL``.  On seeded weights at 64x64,
+    batch 2, the step can be ill-conditioned (BatchNorm on 8 values per
+    channel at the stride-32 maps, flax's E[x^2] - E[x]^2 variance): the
+    reference's own float32 gradients then lie up to 9.7e-2 (res_50) from
+    its float64 ones (``python tests/test_torch_train_backbones.py``
+    prints both steps' distances).  Where the port misses ``TOL``, it is
+    held
+    to be as close as the reference's float32 step (within 2x, per tensor
+    and for the statistics).  Gradients that are rounding noise around
+    zero stay below 1e-5 of the model's largest; parameters no loss term
+    reaches (hrnet's last fuse into branches 1-3, efficientnet's last
+    bottom-up path: their BatchNorm statistics are live in training) get
+    none in the port, exactly zero in the reference.  Adam's first update
+    against optax's on the float64 gradients; where some parameter got no
+    gradient, the stepped state through a checkpoint (no Adam state for
+    it) and back, bit for bit; ``tmp_path`` takes it."""
+    jcfg = j_update(j_default(), _overrides(name))
+    tcfg = update_config(default_config(), _overrides(name))
+    variables = _variables(name, jcfg)
+    batch = _batch(jcfg, tcfg)
+    ref64 = _reference_step(jcfg, variables, batch, jnp.float64)
+
+    trainer = Trainer(tcfg, port_state_dict(variables), device="cpu")
+    stats = {k: float(v) for k, v in trainer.backward(batch).items()}
+    live = dict(trainer.model.named_parameters())
+    dead = [n for n, p in live.items() if p.grad is None]
+    grads = npz_arrays({n: (p.grad if p.grad is not None
+                            else torch.zeros_like(p))
+                        for n, p in live.items()}, ref64["grads"])
+    assert trainer.optimizer.step()  # one update, as the reference's
+    sd = trainer.model.state_dict()
+    assert stats.keys() == ref64["stats"].keys()
+    gaps = _gaps(stats, grads, npz_arrays(sd, ref64["batch_stats"]), ref64)
+    tol = dict(TOL)
+    if any(gaps[k] > tol[k] for k in tol):
+        ref32 = _reference_step(jcfg, variables, batch, jnp.float32)
+        own = _gaps(ref32["stats"], ref32["grads"], ref32["batch_stats"],
+                    ref64)
+        tol = {k: max(tol[k], own[k] * (1 if k in ("loss", "grads") else 2))
+               for k in tol}
+    for k in tol:
+        assert gaps[k] <= tol[k], (k, gaps[k], tol[k])
+    g64 = ref64["grads"]
+    g_all = max(np.abs(v).max() for v in g64.values())
+    for k, want in g64.items():
+        if not np.abs(want).any():
+            assert not np.abs(grads[k]).any(), k
+        elif np.abs(want).max() <= 1e-6 * g_all:
+            assert np.abs(grads[k]).max() < 1e-5 * g_all, k
+
+    # Adam's first update: lr * g / (|g| + eps) (test_torch_train.py),
+    # optax's on the float64 gradients rounded to f32
+    tx = j_make_optimizer(jcfg, 1000)
+    params = variables["params"]
+    g32 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32),
+                                 unflatten(g64))
+    upd = jax.jit(lambda g, p: tx.update(g, tx.init(p), p)[0])(g32, params)
+    want_p = _flat(optax.apply_updates(params, upd), "params")
+    lr = tcfg.train.lr
+    got_p = npz_arrays(sd, want_p)
+    for k, want in want_p.items():
+        g_p, g_j = grads[k], g64[k]
+        resolved = ((np.sign(g_p) == np.sign(g_j))
+                    & (np.minimum(np.abs(g_p), np.abs(g_j)) > 1e-5))
+        diff = np.abs(got_p[k] - want)
+        assert diff[resolved].max(initial=0.0) < 1e-6, k
+        assert diff.max() <= 2 * lr * (1 + 1e-3), k
+
+    if dead:
+        path = str(tmp_path / "model_last")
+        ckpt.save_checkpoint(path, trainer, epoch=1,
+                             meta=ckpt.ckpt_meta(tcfg))
+        fresh = ckpt.restore_state(Trainer(tcfg, device="cpu"),
+                                   ckpt.load_checkpoint(path))
+        assert bit_equal(ckpt.to_host(fresh.state()),
+                         ckpt.to_host(trainer.state()))
+
+
+def unflatten(flat: dict) -> dict:
+    """``_flat``'s "params:['a']['b']" keys back to a nested tree."""
+    import re
+
+    out: dict = {}
+    for key, v in flat.items():
+        parts = re.findall(r"\['([^']+)'\]", key)
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
+
+
+def port_and_reference_gaps(name: str):
+    """``_gaps`` of the port's float32 step and of the reference's, each
+    against the reference's float64 step."""
+    jcfg = j_update(j_default(), _overrides(name))
+    tcfg = update_config(default_config(), _overrides(name))
+    variables = _variables(name, jcfg)
+    batch = _batch(jcfg, tcfg)
+    ref64 = _reference_step(jcfg, variables, batch, jnp.float64)
+    ref32 = _reference_step(jcfg, variables, batch, jnp.float32)
+    trainer = Trainer(tcfg, port_state_dict(variables), device="cpu")
+    stats = {k: float(v) for k, v in trainer.backward(batch).items()}
+    grads = npz_arrays({n: (p.grad if p.grad is not None
+                            else torch.zeros_like(p))
+                        for n, p in trainer.model.named_parameters()},
+                       ref64["grads"])
+    port = _gaps(stats, grads, npz_arrays(trainer.model.state_dict(),
+                                          ref64["batch_stats"]), ref64)
+    return port, _gaps(ref32["stats"], ref32["grads"], ref32["batch_stats"],
+                       ref64)

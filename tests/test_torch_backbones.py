@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from flax.traverse_util import flatten_dict, unflatten_dict
+from flax.traverse_util import flatten_dict
 
 from centerpose_tpu.config import default_config as j_default
 from centerpose_tpu.config import update_config as j_update
@@ -32,7 +32,10 @@ from centerpose_tpu_torch.models.factory import MODEL_FACTORY, create_model
 from centerpose_tpu_torch.weights import (load_npz, npz_arrays,
                                           state_dict_from_npz, torch_key)
 
-from _torch_port import bn_inputs, jax_variables, rel_err
+from _torch_port import (CONV_BN_KINDS, bn_inputs, conv_bn_case,
+                         jax_variables, rel_err)
+from _torch_port import seeded as _seeded
+from _torch_port import shapes as _shapes
 
 ROOT = Path(__file__).resolve().parent.parent
 SNAPSHOTS = {  # name -> (artifact, keys)
@@ -54,35 +57,6 @@ TOL_BF16 = 1.5e-2
 
 def _overrides(name: str) -> dict:
     return {"model": {"name": name, "input_res": RES, "output_res": RES // 4}}
-
-
-def _seeded(shapes: dict, seed: int) -> dict:
-    """Variables in the shapes of the reference's tree (``jax.eval_shape``
-    of its init: the init itself takes up to a minute per backbone on the
-    CPU), made from a seed at its initialisers' scales: conv kernels
-    He-normal over their fan-in (transposed ones too, so asymmetric, where
-    the reference's bilinear init is symmetric), BatchNorm scales near 1,
-    running variances in [0.5, 1.5], BiFPN fusion weights near 1, means
-    and biases near 0."""
-    rng = np.random.default_rng(seed)
-    out = {}
-    for path, leaf in flatten_dict(shapes).items():
-        shape, name = leaf.shape, path[-1]
-        if name == "kernel":
-            v = rng.normal(size=shape) * np.sqrt(2.0 / np.prod(shape[:-1]))
-        elif name == "var":
-            v = rng.uniform(0.5, 1.5, shape)
-        elif name == "scale" or name[:2] in ("td", "bu"):
-            v = 1.0 + 0.1 * rng.normal(size=shape)
-        else:  # bias, mean
-            v = 0.1 * rng.normal(size=shape)
-        out[path] = jnp.asarray(v, jnp.float32)
-    return unflatten_dict(out)
-
-
-def _shapes(model, x) -> dict:
-    return jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), x,
-                                             train=False))
 
 
 @pytest.fixture(scope="module")
@@ -249,32 +223,13 @@ def test_reference_feeds_batchnorm_an_f32_conv(name, npz_dir):
     assert not bad, bad
 
 
-def _conv_bn_case(kind: str):
-    """(reference module, port module, input channels) of one conv ->
-    BatchNorm hand-off."""
-    cin, cout = 16, 24
-    if kind == "deconv":
-        return jcommon.DeconvBN(cout, dtype=jnp.bfloat16), \
-            common.DeconvBN(cin, cout), cin
-    kw = {"k3": {}, "k1": {"kernel": 1}, "strided": {"strides": 2},
-          "dilated": {"dilation": 2}, "grouped": {"groups": 4},
-          "depthwise": {"groups": cin}}[kind]
-    if kind == "depthwise":
-        cout = cin
-    jargs = dict(kw)
-    targs = {("strides" if k == "strides" else k): v for k, v in kw.items()}
-    return (jcommon.ConvBN(cout, dtype=jnp.bfloat16, **jargs),
-            common.ConvBN(cin, cout, **targs), cin)
-
-
-@pytest.mark.parametrize("kind", ["k3", "k1", "strided", "dilated",
-                                  "grouped", "depthwise", "deconv"])
+@pytest.mark.parametrize("kind", CONV_BN_KINDS)
 def test_conv_bn_bf16_bit_equal_to_reference(kind):
     """One ``ConvBN`` / ``DeconvBN`` in bf16 eval mode against the jitted
     reference module on the same weights: bit-equal outputs, as the conv's
     f32 result reaches BatchNorm in both (a bf16 conv that rounds its
     result first leaves 86-88% equal)."""
-    jmod, port, cin = _conv_bn_case(kind)
+    jmod, port, cin = conv_bn_case(kind)
     x = np.random.default_rng(3).normal(size=(2, 12, 20, cin))
     xb = jnp.asarray(x, jnp.bfloat16)
     variables = _seeded(_shapes(jmod, xb), 4)

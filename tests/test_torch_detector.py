@@ -41,10 +41,8 @@ def test_pre_process_matches_cv2(weights, keep_res):
         got, gmeta = td.pre_process(img)
         assert got.dtype.is_floating_point is False
         assert tuple(got.shape) == want.shape
-        d = np.abs(got.numpy().astype(int) - want.astype(int))
-        # float32 bilinear against cv2's interpolation arithmetic: they may
-        # round a value on the other side of .5, never more than one level
-        assert d.max() <= 1 and d.mean() < 0.05
+        # cv2's resize and float32 warp arithmetic, bit for bit
+        np.testing.assert_array_equal(got.numpy(), want)
         np.testing.assert_array_equal(np.asarray(gmeta["s"]),
                                       np.asarray(wmeta["s"]))
         np.testing.assert_array_equal(gmeta["c"], wmeta["c"])

@@ -110,10 +110,14 @@ def test_no_reference_imports_in_port_sources():
     for f in files:
         text = f.read_text()
         hits = pattern.findall(text)
-        # yaml may be imported lazily by the config loader only
+        # yaml may be imported lazily by the config loader only, cv2 by the
+        # COCO reader's image decoder only, inside a function (indented)
         lazy_yaml = f.name == "defaults.py" and all(
             h[1] == "yaml" for h in hits)
-        assert not hits or lazy_yaml, (f, hits)
+        lazy_cv2 = (f == PKG / "data" / "coco.py"
+                    and all(h[1] == "cv2" for h in hits)
+                    and not re.search(r"^(import|from)\s+cv2\b", text, re.M))
+        assert not hits or lazy_yaml or lazy_cv2, (f, hits)
 
 
 def test_cuda_request_without_a_card_raises(monkeypatch):

@@ -52,18 +52,23 @@ def test_cli_trains_saves_validates_and_resumes(tmp_path, monkeypatch):
     assert run2["restored"]["optimizer"]["updates"] == 2
     # the resumed run's first step gives the live trainer's loss on the
     # same batch (epoch 2's first), bit for bit
-    cfg = train_cli.flagship_config(OPTS)
+    cfg = train_cli.run_config(None, OPTS)  # the config main() built
     first = next(DataLoader(SyntheticPoseDataset(8, seed=1, hard=True), cfg,
                             4, seed=cfg.train.seed).epoch(2))
     assert float(live.train_step(first)["loss"]) == run2["first_loss"]
     assert run2["trainer"].step == 4
 
 
-def test_cli_refuses_what_is_not_ported():
-    with pytest.raises(SystemExit, match="item 8"):
-        train_cli.main(["--device", "cpu"])
+def test_cli_refuses_what_is_not_ported(tmp_path):
+    """Data-parallel training (item 7) is refused; without ``--synthetic``
+    the CLI reads COCO files, and a tree without them is refused naming
+    the file it looked for."""
     with pytest.raises(SystemExit, match="item 7"):
         train_cli.main(["--synthetic", "--multihost", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError,
+                       match="person_keypoints_train2017.json"):
+        train_cli.main(["--device", "cpu", "--defaults", "dataset.root",
+                        str(tmp_path), "output_dir", str(tmp_path / "out")])
 
 
 @pytest.mark.parametrize("test", [{}, {"flip_test": True,

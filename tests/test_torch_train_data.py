@@ -11,16 +11,15 @@ import centerpose_tpu.ops.image as jimage
 from centerpose_tpu.data.synthetic import make_person as j_make_person
 from centerpose_tpu_torch.data.encode import encode_example, stack_batch
 from centerpose_tpu_torch.data.synthetic import make_person
+from centerpose_tpu_torch import native
 from centerpose_tpu_torch.ops import image
 
 from _torch_port import jax_cfg, torch_cfg
 
-# cv2.warpAffine interpolates in fixed point (1/32 pixel, 10-bit weights)
-# and the port in float32; both round to uint8, so a pixel may land one
-# level apart.  On the float32 wire the colour augmentation then scales
-# that level by its gain (at most 1.4^3 from brightness, contrast and
-# saturation together).
-WARP_MAX_DIFF = {"compact": 1, "float32": 1.4 ** 3}
+# The port's warp is bit-equal to cv2.warpAffine on uint8 images, so the
+# encoded input is too, on either wire (the float32 wire's colour
+# augmentation is the same numpy code on the same uint8 values).
+WARP_MAX_DIFF = {"compact": 0, "float32": 0}
 
 
 def _scene(seed, h=120, w=160, people=3):
@@ -100,8 +99,41 @@ def test_encode_example_matches_jax(monkeypatch, wire, is_train):
         else:  # back to uint8 levels: x * std + mean, times 255
             std = np.asarray(tcfg.dataset.std, np.float32)
             diff = np.abs(a - b) * std * 255.0
-        assert diff.max() <= WARP_MAX_DIFF[wire] + 1e-3
+        assert diff.max() <= WARP_MAX_DIFF[wire]
         examples.append(got)
     batch = stack_batch(examples)
     assert batch["hm"].shape == (6, 16, 16, 1)
     assert batch["ind"].shape == (6, 4) and batch["ind"].dtype == np.int32
+
+
+@pytest.mark.parametrize("chunk", range(4))
+def test_warp_affine_bit_equal_to_cv2(chunk):
+    """``ops/image.warp_affine`` on uint8 and the native library's warp
+    (the encoder's path) against ``cv2.warpAffine`` (INTER_LINEAR,
+    constant 0 border) over 40 seeded rotation / scale / shift matrices
+    (10 per case) on odd image and output sizes, outputs narrower than one
+    vector of cv2's row loop included: bit-equal."""
+    import cv2
+    import torch
+
+    r = np.random.default_rng(100 + chunk)
+    for i in range(10):
+        h, w = (int(v) for v in r.integers(5, 260, 2) | 1)
+        img = r.integers(0, 256, (h, w, 3), np.uint8)
+        c = np.array([w / 2 + r.uniform(-30, 30), h / 2 + r.uniform(-30, 30)],
+                     np.float32)
+        s = float(max(h, w) * r.uniform(0.4, 1.8))
+        rot = float(r.uniform(-180, 180)) if i % 3 else 0.0
+        out = (int(r.integers(1, 15)) if i == 0 else int(r.integers(15, 200)),
+               int(r.integers(1, 200)))
+        trans = image.get_affine_transform(
+            c, s, rot, out, shift=tuple(r.uniform(-0.2, 0.2, 2)))
+        want = cv2.warpAffine(img, trans, out, flags=cv2.INTER_LINEAR,
+                              borderMode=cv2.BORDER_CONSTANT, borderValue=0)
+        got = image.warp_affine(torch.from_numpy(img), trans, out)
+        assert got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=str(i))
+        if native.available():  # the encoder's path where g++ builds it
+            got = native.warp_affine_native(img, image.cv2_inverse(trans),
+                                            image.CV2_LANES, *out)
+            np.testing.assert_array_equal(got, want, err_msg=f"native {i}")
