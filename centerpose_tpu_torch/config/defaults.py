@@ -37,7 +37,9 @@ class ModelConfig:
     # DCNv2 site policy of the reference: 'xla' computes every site
     # unclamped; 'pallas' / 'pallas_full' clamp dy at the sites the
     # reference's fused kernels take (ops/dcn_cuda.py: site_max_dy).  The
-    # port runs its own kernel either way.  'conv' is not ported.
+    # port runs its own kernel either way.  'conv' is the reference's
+    # ablation: a plain 3x3 conv at every site, no offsets, no DCN kernel
+    # (models/dla.py: DCN).
     dcn_impl: str = "xla"
     # y-offset clamp radius under the pallas policies.  0 = the per-width
     # defaults (ops/dcn_cuda.DEFAULT_MAX_DY); a positive value forces that

@@ -392,6 +392,18 @@ class KeypointEval(COCOProtocolEval):
         super().__init__(gts, dts, iou_type="keypoints")
 
 
+def summarize_keypoints(acc: Dict[str, np.ndarray]) -> Dict[str, float]:
+    """The 10 keypoint stats of an ``accumulate()`` result, precision
+    ``[T, R, A, M]`` and recall ``[T, A, M]``, or the older layouts without
+    the max-detections axis (``[T, R, A]``, ``[T, A]``)."""
+    precision, recall = acc["precision"], acc["recall"]
+    if precision.ndim == 3:
+        precision = precision[..., None]
+        recall = recall[..., None]
+    return COCOProtocolEval([], [], iou_type="keypoints").summarize(
+        {"precision": precision, "recall": recall})
+
+
 def evaluate_keypoints(gts: List[dict], dts: List[dict]) -> Dict[str, float]:
     """One-call keypoint evaluation: annotations + detections -> 10 stats."""
     return COCOProtocolEval(gts, dts, iou_type="keypoints").summarize()

@@ -182,20 +182,22 @@ class Detector:
         """Full pipeline on one RGB [H, W, 3] image, or an image file's
         path (decoded as the reference does: ``data/coco.read_image``),
         over ``test.test_scales``; returns the results and per-stage wall
-        times (seconds, device work synchronised; ``pre`` includes the
-        decode and the one upload)."""
+        times (seconds, device work synchronised): ``load`` the decode of
+        a path, ``pre`` the one upload and each scale's resize and warp,
+        ``net``, ``post``, ``merge`` and ``tot``."""
         t_start = time.perf_counter()
         if isinstance(image, (str, os.PathLike)):
             image = read_image(os.fspath(image))
         if not isinstance(image, np.ndarray):
             raise TypeError("Detector.run takes an [H, W, 3] numpy image or "
                             "an image file's path")
+        t_load = time.perf_counter()
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else (lambda: None))
         src = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
         detections = []
         pre_t = net_t = post_t = 0.0
-        t0 = t_start
+        t0 = t_load
         for scale in self.cfg.test.test_scales:
             images, meta = self.pre_process(src, scale)
             sync()
@@ -211,8 +213,9 @@ class Detector:
         t4 = time.perf_counter()
         results = self.merge_outputs(detections)
         t_end = time.perf_counter()
-        return {"results": results, "tot": t_end - t_start, "pre": pre_t,
-                "net": net_t, "post": post_t, "merge": t_end - t4}
+        return {"results": results, "tot": t_end - t_start,
+                "load": t_load - t_start, "pre": pre_t, "net": net_t,
+                "post": post_t, "merge": t_end - t4}
 
     def run_batch(self, images: np.ndarray) -> np.ndarray:
         """Batched frames [N, H, W, 3] -> decoded [N, K, 40] (grid coords).

@@ -21,7 +21,8 @@ training radius (``train_site_max_dy``); both backwards pass the clamp's
 gradient at exactly +-R that the reference's backward dispatch gives the
 site (``train_site_edge_grad``).  Each is the CUDA kernel for a CUDA tensor
 and its plain version for a CPU tensor.  At 512x512 the 16 calls of one
-forward go over 7 site shapes.
+forward go over 7 site shapes.  Under ``dcn_impl: conv``, the reference's
+ablation, every site is a plain 3x3 conv (``DCN._plain_conv``).
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from centerpose_tpu_torch.models.common import (BatchNorm2d, ConvBN, HeadStack,
-                                                bilinear_1d, tf32_convs)
+                                                _ConvF32, _narrow, bilinear_1d,
+                                                tf32_convs)
 from centerpose_tpu_torch.ops.dcn_cuda import (dcn_v2, dcn_v2_fused,
                                                site_max_dy, site_om_fused,
                                                train_site_edge_grad,
@@ -67,7 +69,15 @@ class DCN(nn.Module):
     """Modulated deformable conv module: offset/mask conv + DCNv2.  Weights
     are cast to the input's dtype at use; the bias stays float32
     (``float32_params``): the reference adds it in f32 before the cast to
-    the output type."""
+    the output type.
+
+    ``dcn_impl="conv"`` is the reference's ablation: a plain 3x3 conv with
+    the DCN's weight and bias and no offset/mask parameters (not a DCN, and
+    no hand kernel).  In bf16 it returns the f32 sum of the conv and the
+    bias, the conv computed in f32 on the bf16 values (``_ConvF32``): in
+    the reference's compiled bf16 graph XLA drops the conv's rounding
+    before the f32 bias add, as at a ``ConvBN``
+    (``tests/test_torch_dcn_conv.py``)."""
 
     float32_params = ("bias",)
 
@@ -81,9 +91,20 @@ class DCN(nn.Module):
         self.weight = nn.Parameter(torch.empty(3, 3, in_features, features))
         nn.init.normal_(self.weight, std=float(np.sqrt(2.0 / (9 * in_features))))
         self.bias = nn.Parameter(torch.zeros(features))
-        self.conv_offset_mask = _OffsetMaskParams(in_features)
+        if dcn_impl != "conv":
+            self.conv_offset_mask = _OffsetMaskParams(in_features)
+
+    def _plain_conv(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.permute(3, 2, 0, 1)  # [3, 3, Cin, Cout] -> OIHW
+        if _narrow(x.dtype):
+            y = _ConvF32.apply(x, w, False, (1, 1), (1, 1), (1, 1), (0, 0), 1)
+        else:
+            y = F.conv2d(x, w.to(x.dtype), padding=1)
+        return y + self.bias.view(1, -1, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dcn_impl == "conv":
+            return self._plain_conv(x)
         _, _, h, w = x.shape
         dt = x.dtype
         site = (h, w, self.in_features, self.features, self.dcn_impl,
@@ -115,7 +136,9 @@ class DeformConv(nn.Module):
     dtype, as in the reference's compiled bf16 graph under both ``xla`` and
     ``pallas_full``: there the DCN's cast of its f32 result to bf16 survives
     (unlike a conv's, ``common.conv_bn``; ``tests/test_torch_dla_site.py:
-    bn_inputs``)."""
+    bn_inputs``).  Under the ``conv`` ablation the DCN hands over an f32
+    sum, which BatchNorm normalises in f32 and the block rounds after it,
+    as the reference's bf16 BatchNorm does."""
 
     def __init__(self, in_features: int, features: int, dcn_impl: str = "xla",
                  dcn_max_dy: int = 0):
@@ -124,7 +147,7 @@ class DeformConv(nn.Module):
         self.BatchNorm_0 = BatchNorm2d(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.BatchNorm_0(self.DCN_0(x)))
+        return torch.relu(self.BatchNorm_0(self.DCN_0(x)).to(x.dtype))
 
 
 def bilinear_kernel(channels: int, factor: int) -> torch.Tensor:

@@ -25,8 +25,9 @@ Without ``--cfg`` the config is the flagship's (dla_34 @512, bfloat16,
 defaults instead (float32, ``xla``, ``head_conv`` 64), as the reference's
 ``load_config(None, opts)`` does, e.g. ``--defaults model.name res_18
 test.model_path output/res18_hard_artifact/params_f16.npz``.
-``test.model_path`` defaults to the committed dla_34 snapshot.  Weights are
-read from ``.npz`` snapshots only.
+``test.model_path`` defaults to the committed dla_34 snapshot; it may
+name another ``.npz`` snapshot or a checkpoint that the port's
+``tools/train.py`` wrote (``<run dir>/model_best``, ``model_last``).
 """
 
 from __future__ import annotations
@@ -47,6 +48,10 @@ from centerpose_tpu_torch.data.coco import COCOHP
 from centerpose_tpu_torch.data.synthetic import SyntheticEvalDataset
 from centerpose_tpu_torch.eval.harness import evaluate_detector
 from centerpose_tpu_torch.inference.detector import Detector
+from centerpose_tpu_torch.models.factory import create_model
+from centerpose_tpu_torch.train.checkpoints import (load_checkpoint,
+                                                    restore_params_filtered,
+                                                    warn_impl_mismatch)
 from centerpose_tpu_torch.weights import state_dict_from_npz
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -72,13 +77,32 @@ def run_dir(cfg: Config) -> str:
     return os.path.join(out, cfg.exp_id)
 
 
+def checkpoint_state_dict(cfg: Config, path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of a ``cfg`` model with the weights of a training
+    checkpoint (``train/checkpoints.save_checkpoint``: ``model_best``,
+    ``model_last``), as the reference's ``load_detector`` reads one: a
+    warning where its ``.meta.json`` knobs differ from ``cfg``'s, the
+    parameters through ``restore_params_filtered`` onto the model's seeded
+    init, the BatchNorm statistics as saved."""
+    warn_impl_mismatch(cfg, path)
+    payload = load_checkpoint(path)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = create_model(cfg)
+    restore_params_filtered(model, payload["model"])
+    sd = model.state_dict()
+    sd.update({k: v for k, v in payload["bn"].items() if k in sd})
+    return sd
+
+
 def load_detector(cfg: Config, device: str = "cuda") -> Detector:
-    """The Detector with the weights of ``cfg.test.model_path`` (an
-    ``.npz`` snapshot; empty: the committed dla_34 snapshot)."""
+    """The Detector with the weights of ``cfg.test.model_path``: an
+    ``.npz`` snapshot (empty: the committed dla_34 snapshot) or a
+    training checkpoint (``checkpoint_state_dict``)."""
     path = cfg.test.model_path or str(SNAPSHOT)
-    if not path.endswith(".npz"):
-        raise ValueError(f"{path}: the port reads .npz weight snapshots only")
-    return Detector(cfg, state_dict_from_npz(path), device=device)
+    if path.endswith(".npz"):
+        return Detector(cfg, state_dict_from_npz(path), device=device)
+    return Detector(cfg, checkpoint_state_dict(cfg, path), device=device)
 
 
 def evaluate(detector: Detector, dataset: SyntheticEvalDataset,

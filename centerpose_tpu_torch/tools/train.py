@@ -22,7 +22,10 @@ with cv2).  Log each epoch's loss stats (read at its first step and every
 ``train.val_intervals`` epochs compute the val loss and the keypoint AP of
 the current weights (``eval/harness.evaluate_detector`` on up to
 ``train.val_ap_limit`` images) and save ``model_best`` on a better AP;
-``train.resume 1`` resumes from ``model_last``.  Logs and checkpoints go
+``train.resume 1`` resumes from ``model_last``; under ``debug 1`` each
+validation pass also draws its first batch's predicted and ground-truth
+heatmaps into ``debug/epoch_<e>/`` (``utils/debugger.render_train_debug``,
+cv2).  Logs and checkpoints go
 to ``<output_dir>/<exp_id>``, where an ``output_dir`` of ``output`` (the
 default, the JAX package's) becomes ``port_output``: by default
 ``port_output/default``.
@@ -54,6 +57,7 @@ from centerpose_tpu_torch.train.checkpoints import (ckpt_meta,
                                                     save_checkpoint, to_host,
                                                     wait_for_saves)
 from centerpose_tpu_torch.train.trainer import Trainer
+from centerpose_tpu_torch.utils.debugger import render_train_debug
 from centerpose_tpu_torch.utils.logger import AverageMeter, Logger
 from centerpose_tpu_torch.utils.platform import resolve_device
 from centerpose_tpu_torch.utils.profiling import step_trace_window
@@ -121,15 +125,18 @@ def _train_epoch(trainer, batches, tick, steps_before: int,
              "data_wait_frac": data_wait / dt}, steps, first_loss)
 
 
-def _val_loss(trainer, val_ds, cfg, device) -> Dict[str, float]:
-    """The mean loss stats of ``eval_step`` over the val split."""
+def _val_loss(trainer, val_ds, cfg, device):
+    """The mean loss stats of ``eval_step`` over the val split, and its
+    first batch (for the debug renders)."""
     loader = DataLoader(val_ds, cfg, batch_size=cfg.train.batch_size,
                         is_train=False, num_workers=0, seed=0)
     meters: Dict[str, AverageMeter] = {}
+    first = None
     for b in prefetch_to_device(loader.epoch(0), device):
+        first = b if first is None else first
         for k, v in trainer.eval_step(b).items():
             meters.setdefault(k, AverageMeter()).update(float(v))
-    return {k: m.avg for k, m in meters.items()}
+    return {k: m.avg for k, m in meters.items()}, first
 
 
 def main(argv=None) -> Dict:
@@ -198,8 +205,6 @@ def main(argv=None) -> Dict:
         stats["eval_wall_s"] = wall
         return stats
 
-    if cfg.debug > 0:
-        logger.write("debug rendering is not ported (cfg.debug ignored)")
     prof_start, prof_stop = (int(v) for v in args.profile_steps.split(":"))
     best_metric = -float("inf")
     total_steps = 0
@@ -225,8 +230,14 @@ def main(argv=None) -> Dict:
                                     trainer, epoch, meta=meta)
                 if (cfg.train.val_intervals > 0
                         and epoch % cfg.train.val_intervals == 0):
-                    logger.log_stats("val", epoch, trainer.step,
-                                     _val_loss(trainer, val_ds, cfg, device))
+                    val_stats, debug_batch = _val_loss(trainer, val_ds, cfg,
+                                                       device)
+                    if cfg.debug > 0 and debug_batch is not None:
+                        render_train_debug(
+                            trainer.model, debug_batch, cfg,
+                            os.path.join(logger.log_dir, "debug",
+                                         f"epoch_{epoch}"))
+                    logger.log_stats("val", epoch, trainer.step, val_stats)
                     ap_stats = run_ap_eval()
                     logger.log_stats("val_ap", epoch, trainer.step, ap_stats)
                     metric = epochs[-1]["AP"] = ap_stats.get("AP", -1.0)

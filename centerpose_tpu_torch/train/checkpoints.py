@@ -19,12 +19,24 @@ Counterpart of ``centerpose_tpu/train/checkpoints.py`` (orbax there,
   snapshot format (``params:['a']['b']['kernel']``,
   ``batch_stats:[...]['mean']``), so snapshots go both ways between the
   packages.
+- ``restore_params_filtered``: the reference's ``load_model`` semantics
+  (a missing or mis-shaped parameter keeps its init, an unexpected one is
+  dropped, each with its line).
+- ``import_state_dict`` with ``torchvision_resnet_key_maps`` or
+  ``dla34_pose_key_maps``: an upstream (PyTorch-layout) state dict merged
+  into the model as the reference's ``import_numpy_state_dict`` merges it
+  into its tree; whatever finds no target keeps its init.
+
+Lines name a parameter by the reference's spelling of its key
+(``['base']['base_layer']['Conv_0']['kernel']``) and shapes in the
+reference's layout, so they read as the reference's.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import threading
 from typing import Any, Dict, List, Optional
 
@@ -32,7 +44,8 @@ import numpy as np
 import torch
 
 from centerpose_tpu_torch.ops.dcn_cuda import DEFAULT_MAX_DY
-from centerpose_tpu_torch.weights import load_npz, npz_arrays, torch_key
+from centerpose_tpu_torch.weights import (load_npz, npz_arrays, port_layout,
+                                         reference_shape, torch_key)
 
 _SAVES: List[threading.Thread] = []
 _ERRORS: List[BaseException] = []
@@ -229,7 +242,7 @@ def restore_state(trainer, payload: Dict[str, Any]):
     return trainer
 
 
-def _npz_tensors(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+def model_npz_tensors(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The model's parameters and BatchNorm statistics by the reference's
     flat key (the fixed upsample kernels and BatchNorm's batch counters
     have none)."""
@@ -257,7 +270,7 @@ def save_params_npz(model: torch.nn.Module, path: str, dtype=None) -> None:
     """A flat-key ``.npz`` snapshot of the model's parameters and BatchNorm
     statistics in the reference's format and layouts (params optionally
     cast to ``dtype``), readable by its ``load_params_npz``."""
-    by_key = _npz_tensors(model)
+    by_key = model_npz_tensors(model)
     flat = npz_arrays({torch_key(k): t for k, t in by_key.items()}, by_key)
     if dtype is not None:
         flat = {k: (v.astype(dtype) if k.startswith("params:") else v)
@@ -270,3 +283,230 @@ def load_params_npz(model: torch.nn.Module, path: str) -> torch.nn.Module:
     ``model`` strictly; returns it."""
     load_npz(model, path)
     return model
+
+
+# ---------------------------------------------------------------------------
+# Filtered restore and upstream import
+# ---------------------------------------------------------------------------
+_PATH = re.compile(r"\['([^']+)'\]")
+_REF_LEAF = {"weight": "kernel", "running_mean": "mean", "running_var": "var"}
+
+
+def _ref_spelling(name: str, by_name: Dict[str, str]) -> str:
+    """The reference's spelling of the key of state-dict name ``name``
+    (``by_name``: the model's {name: snapshot key}); a name the model does
+    not have is spelled by its parts, ``weight`` as ``kernel``."""
+    if name in by_name:
+        return by_name[name].partition(":")[2]
+    *path, leaf = name.split(".")
+    return "".join(f"['{p}']" for p in [*path, _REF_LEAF.get(leaf, leaf)])
+
+
+def _numpy(arr) -> np.ndarray:
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().cpu()
+        return (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
+    return np.asarray(arr)
+
+
+@torch.no_grad()
+def restore_params_filtered(model: torch.nn.Module,
+                            state_dict: Dict[str, Any],
+                            verbose: bool = True) -> torch.nn.Module:
+    """Copy the parameters of ``state_dict`` (by the port's names, e.g. a
+    checkpoint's ``model`` group) into ``model``'s: a parameter missing
+    from it, or there in another shape, keeps its init; a key the model
+    has no parameter for is dropped; each is printed when ``verbose``.
+    Returns ``model``."""
+    tensors = {k: t for k, t in model_npz_tensors(model).items()
+               if k.startswith("params:")}
+    by_name = {torch_key(k): k for k in tensors}
+    for name, key in by_name.items():
+        t, ref = tensors[key], key.partition(":")[2]
+        if name not in state_dict:
+            if verbose:
+                print(f"[ckpt] missing in checkpoint, keeping init: {ref}")
+        elif tuple(state_dict[name].shape) != tuple(t.shape):
+            if verbose:
+                print(f"[ckpt] shape mismatch for {ref}: ckpt "
+                      f"{reference_shape(key, state_dict[name].shape)} vs "
+                      f"model {reference_shape(key, t.shape)}; skipping")
+        else:
+            t.copy_(torch.as_tensor(state_dict[name]))
+    for name in state_dict:
+        if name not in by_name and verbose:
+            print("[ckpt] unexpected key in checkpoint, dropped: "
+                  f"{_ref_spelling(name, by_name)}")
+    return model
+
+
+def _to_reference_layout(arr: np.ndarray, shape: tuple) -> np.ndarray:
+    """An upstream tensor in the reference's layout of ``shape``, as its
+    ``_torch_to_flax_layout`` converts it: as it is where the shape
+    matches, conv kernels OIHW -> HWIO and linear [out, in] -> [in, out]
+    where that matches; otherwise unchanged (a mismatch)."""
+    if arr.shape == shape:
+        return arr
+    if arr.ndim == 4 and arr.transpose(2, 3, 1, 0).shape == shape:
+        return arr.transpose(2, 3, 1, 0)
+    if arr.ndim == 2 and arr.T.shape == shape:
+        return arr.T
+    return arr
+
+
+@torch.no_grad()
+def import_state_dict(model: torch.nn.Module, state_dict: Dict[str, Any],
+                      key_map: Optional[Dict[str, str]] = None,
+                      verbose: bool = True) -> torch.nn.Module:
+    """Merge a PyTorch-convention state dict (numpy arrays or tensors)
+    into ``model``'s parameters and BatchNorm statistics.
+
+    A key is a name of the port's state dict, or any name that ``key_map``
+    ({state_dict key: port name}) routes to one.  Each array is brought to
+    its target's layout through the reference's (``_to_reference_layout``
+    against the reference's shape of the target, then
+    ``weights.port_layout``): upstream OIHW conv kernels land on the port's
+    OIHW convs as they are and on its DCN weights ([3, 3, Cin, Cout])
+    transposed.  Anything unmatched keeps its init, printed when
+    ``verbose`` with the count loaded.  Returns ``model``."""
+    tensors = model_npz_tensors(model)
+    by_name = {torch_key(k): k for k in tensors}
+    loaded = set()
+    for key, arr in state_dict.items():
+        name = key_map.get(key, key) if key_map else key
+        if name not in by_name:
+            if verbose:
+                print(f"[import] no model param for {key}; dropped")
+            continue
+        npz_key = by_name[name]
+        t = tensors[npz_key]
+        want = reference_shape(npz_key, t.shape)
+        arr = _to_reference_layout(_numpy(arr), want)
+        if arr.shape != want:
+            if verbose:
+                print(f"[import] shape mismatch for "
+                      f"{npz_key.partition(':')[2]}: {arr.shape} vs {want}; "
+                      "skipping")
+            continue
+        t.copy_(torch.from_numpy(np.ascontiguousarray(
+            port_layout(npz_key, arr))))
+        loaded.add(npz_key)
+    if verbose:
+        print(f"[import] loaded {len(loaded)}/{len(tensors)} params")
+    return model
+
+
+# torchvision ResNet: ``layerL.i`` is the port's ``{BasicBlock|Bottleneck}_k``
+# in construction order, ``convN``/``bnN`` its ``ConvBN_{N-1}``,
+# ``downsample.{0,1}`` its trailing projection.  The deconvs and heads have
+# no torchvision source and keep their init.
+_RESNET_TV_LAYERS = {
+    18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
+    101: (3, 4, 23, 3), 152: (3, 8, 36, 3),
+}
+
+
+def torchvision_resnet_key_maps(num_layers: int) -> Dict[str, str]:
+    """{torchvision ``resnet{num_layers}`` name: the port's PoseResNet
+    name} for ``import_state_dict``, parameters and statistics."""
+    layers = _RESNET_TV_LAYERS[num_layers]
+    n_convs = 3 if num_layers >= 50 else 2
+    prefix = "Bottleneck" if num_layers >= 50 else "BasicBlock"
+    out = {"conv1.weight": "Conv_0.weight", "bn1.weight": "BatchNorm_0.weight",
+           "bn1.bias": "BatchNorm_0.bias",
+           "bn1.running_mean": "BatchNorm_0.running_mean",
+           "bn1.running_var": "BatchNorm_0.running_var"}
+
+    def bn(src: str, dst: str) -> None:
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{src}.{leaf}"] = f"{dst}.BatchNorm_0.{leaf}"
+
+    blk = 0
+    for stage, n in enumerate(layers, start=1):
+        for i in range(n):
+            t, f = f"layer{stage}.{i}", f"{prefix}_{blk}"
+            for c in range(n_convs):
+                out[f"{t}.conv{c + 1}.weight"] = f"{f}.ConvBN_{c}.Conv_0.weight"
+                bn(f"{t}.bn{c + 1}", f"{f}.ConvBN_{c}")
+            ds = f"{f}.ConvBN_{n_convs}"
+            out[f"{t}.downsample.0.weight"] = f"{ds}.Conv_0.weight"
+            bn(f"{t}.downsample.1", ds)
+            blk += 1
+    return out
+
+
+def _dla34_torch_name(parts) -> Optional[str]:
+    """The upstream ``pose_dla_dcn.DLASeg`` name of one reference key path
+    (its segments, leaf included); None where there is none.  Upstream:
+    ``base.base_layer.{0,1}``, ``base.levelK[.tree1/.tree2/.root/.project]``
+    (BasicBlock ``conv1/bn1/conv2/bn2``, Root ``conv/bn``,
+    ``project.{0,1}``), ``dla_up.ida_I.{proj,node}_K.conv{.weight,.bias,
+    .conv_offset_mask.*}`` with ``.actf.0`` (the BatchNorm), ``ida_up.*``
+    likewise, ``{head}.{0,2}`` (Sequential(conv3x3, relu, conv1x1))."""
+    leaf = parts[-1]
+    segs = parts[:-1]
+    conv_leaf = {"kernel": "weight", "bias": "bias"}
+    bn_leaf = {"scale": "weight", "bias": "bias",
+               "mean": "running_mean", "var": "running_var"}
+    out: list = []
+    i = 0
+    while i < len(segs):
+        s = segs[i]
+        if s.startswith("HeadStack"):
+            i += 1  # a container with no upstream counterpart
+        elif s in ("base", "dla_up", "ida_up") or s.startswith(
+                ("level", "tree", "ida_", "proj_", "node_")):
+            out.append(s)
+            i += 1
+        elif s == "base_layer":
+            if segs[i + 1] == "Conv_0":
+                return ".".join(out + [s, "0", conv_leaf[leaf]])
+            return ".".join(out + [s, "1", bn_leaf[leaf]])
+        elif s == "root":
+            if segs[i + 2] == "Conv_0":  # root/ConvBN_0/{Conv_0,BatchNorm_0}
+                return ".".join(out + ["root", "conv", conv_leaf[leaf]])
+            return ".".join(out + ["root", "bn", bn_leaf[leaf]])
+        elif s == "project":
+            if segs[i + 1] == "Conv_0":
+                return ".".join(out + ["project", "0", conv_leaf[leaf]])
+            return ".".join(out + ["project", "1", bn_leaf[leaf]])
+        elif s.startswith("ConvBN_"):
+            # a BasicBlock's conv1/bn1, conv2/bn2
+            n = int(s.split("_")[1]) + 1
+            if segs[i + 1] == "Conv_0":
+                return ".".join(out + [f"conv{n}", conv_leaf[leaf]])
+            return ".".join(out + [f"bn{n}", bn_leaf[leaf]])
+        elif s == "Conv_0":
+            # a ConvBN named by its parent (level0, level1): Sequential
+            return ".".join(out + ["0", conv_leaf[leaf]])
+        elif s == "BatchNorm_0" and segs[i - 1].startswith("level"):
+            return ".".join(out + ["1", bn_leaf[leaf]])
+        elif s == "DCN_0":
+            if i + 1 < len(segs) and segs[i + 1] == "conv_offset_mask":
+                return ".".join(out + ["conv", "conv_offset_mask",
+                                       conv_leaf[leaf]])
+            return ".".join(out + ["conv", conv_leaf[leaf]])
+        elif s == "BatchNorm_0":
+            # DeformConv's BatchNorm -> actf.0
+            return ".".join(out + ["actf", "0", bn_leaf[leaf]])
+        elif s.endswith("_conv"):
+            return ".".join([s[:-5], "0", conv_leaf[leaf]])
+        elif s.endswith("_out"):
+            return ".".join([s[:-4], "2", conv_leaf[leaf]])
+        else:
+            return None
+    return None
+
+
+def dla34_pose_key_maps(model: torch.nn.Module) -> Dict[str, str]:
+    """{upstream ``pose_dla_dcn`` name: the port's name} for a dla_34
+    model's parameters and statistics, by walking the live module.  The
+    frozen bilinear ``up_K`` transposed-conv weights of upstream have no
+    target (the port's upsample is fixed math) and are dropped by
+    ``import_state_dict``."""
+    out = {}
+    for key in model_npz_tensors(model):
+        name = _dla34_torch_name(_PATH.findall(key.partition(":")[2]))
+        if name is not None:
+            out[name] = torch_key(key)
+    return out

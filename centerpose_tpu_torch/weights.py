@@ -74,19 +74,37 @@ def _kernel_kind(npz_key: str) -> str:
     return "transpose" if parts[-2].startswith("ConvTranspose") else "conv"
 
 
+def port_layout(npz_key: str, arr: np.ndarray) -> np.ndarray:
+    """The array of snapshot key ``npz_key`` (the reference's layout) in
+    the layout of the state-dict tensor it maps to."""
+    kind = _kernel_kind(npz_key)
+    if kind and arr.ndim != 4:
+        raise ValueError(f"{npz_key}: conv kernel of rank {arr.ndim}")
+    if kind == "conv":
+        return arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if kind == "transpose":
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1)  # -> [in, out, kh, kw]
+    return arr
+
+
+def reference_shape(npz_key: str, shape) -> tuple:
+    """The shape, in the reference's layout, of snapshot key ``npz_key``
+    whose state-dict tensor has ``shape`` (``port_layout``'s inverse)."""
+    shape = tuple(shape)
+    kind = _kernel_kind(npz_key)
+    if kind == "conv" and len(shape) == 4:
+        return (shape[2], shape[3], shape[1], shape[0])
+    if kind == "transpose" and len(shape) == 4:
+        return (shape[2], shape[3], shape[0], shape[1])
+    return shape
+
+
 def state_dict_from_npz(path: str) -> Dict[str, torch.Tensor]:
     """Every key of the snapshot, mapped; float32 tensors on the CPU."""
     out: Dict[str, torch.Tensor] = {}
     with np.load(path) as data:
         for key in data.files:
-            arr = np.asarray(data[key], dtype=np.float32)
-            kind = _kernel_kind(key)
-            if kind and arr.ndim != 4:
-                raise ValueError(f"{key}: conv kernel of rank {arr.ndim}")
-            if kind == "conv":
-                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-            elif kind == "transpose":
-                arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)  # -> [in, out, kh, kw]
+            arr = port_layout(key, np.asarray(data[key], dtype=np.float32))
             name = torch_key(key)
             if name in out:
                 raise KeyError(f"two snapshot keys map to {name!r}")

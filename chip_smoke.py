@@ -37,7 +37,9 @@ took:
    path on the card (head errors, overlap of the top-100 decoded centers),
    in float32 and bfloat16, and 16 K1 calls per forward (16 kernel
    launches in bfloat16, one a call; 32 in float32: the om conv and the
-   product);
+   product); then the ``dcn_impl: conv`` ablation (dla_34 @512 bf16 from
+   seeded random weights: one forward, finite heads, no DCN kernel
+   launched);
 5. training model check: one training step at 512x512, batch 2, float32,
    from the snapshot, kernel path against plain path: the loss, every
    parameter's gradient and the BatchNorm statistics after the step; 16 K2
@@ -49,6 +51,16 @@ took:
    ``Detector.run_batch`` at batch 8, with the launch counts of that run;
 7. trace: one batch-8 ``run_batch`` under ``torch.profiler``, device time
    by kernel;
+7b. demo, a main path: 32 synthetic 640x480 frames of the port's renderer
+   (``data/synthetic.render_scene``) through the demo's batched stream
+   (``tools/demo.stream``: pre-process on the card, one
+   ``Detector.process`` call and one copy to the host per batch of 8, the
+   inverse affine per frame), 16 K1 launches per call, 64 in all; each
+   frame's 100 rows finite and held against ``Detector.run`` on the same
+   frame (DEMO_PX, DEMO_SCORE); frames/s beside ``Detector.run``'s ms per
+   frame; ``soft_nms_39_jit`` on the card on each frame's rows against the
+   host ``soft_nms_39``, ms per call; where cv2 imports, the demo CLI on
+   ``--demo synthetic`` (4 PNGs), else a line saying it was not run;
 8. training, a main path: the port's ``Trainer`` at batch 8, bfloat16,
    ``pallas_full``, compact wire, on batches encoded by the port's
    ``encode_example`` (train augmentation on) from synthetic frames: one
@@ -86,7 +98,10 @@ took:
    with ``train.resume 1`` starts at epoch 3 from a state bit-equal to the
    live trainer's (parameters, BatchNorm statistics, Adam's moments and
    steps, step count, schedule position) and its first loss is the live
-   trainer's on the same batch, bit for bit; the first 3 batches of an
+   trainer's on the same batch, bit for bit; ``model_best`` loaded
+   through ``tools/evaluate.load_detector`` on the card, its weights
+   bit-equal to the file's and its ``Detector.run`` launching K1; the
+   first 3 batches of an
    epoch with 8 workers equal those with none byte for byte; the native
    library is built and its encoder matches the numpy path within 1e-5
    over 64 examples.  It prints each epoch's images/s and
@@ -225,6 +240,19 @@ CLI_STEPS, CLI_EPOCHS, CLI_WORKERS, CLI_AP_LIMIT = 8, 2, 8, 32
 # The native encoder against the numpy path: the reference's own tolerance
 # (tests/test_native.py), over this many examples.
 NATIVE_EXAMPLES, TOL_NATIVE = 64, 1e-5
+# The demo phase: 32 synthetic 640x480 frames through the demo's batched
+# stream at batch 8, each frame's rows held against Detector.run on the
+# same frame (batch 1: K1 and cuDNN may take other plans, so the bf16 rows
+# may differ in their last bits): every row scoring >= test.vis_thresh on
+# either side has a row on the other within DEMO_PX image pixels (box
+# center, Chebyshev) and DEMO_SCORE in score, about 12x and 3x the
+# worst read on the H100 (0.020 px, 0.0037): a frame whose inverse affine
+# is off by a pixel fails.  The on-device soft-NMS on
+# each frame's rows against the host soft_nms_39, score by score (the
+# reference's own check): DEMO_NMS_RTOL relative, DEMO_NMS_ATOL absolute.
+DEMO_FRAMES, DEMO_BATCH = 32, 8
+DEMO_PX, DEMO_SCORE = 0.25, 0.01
+DEMO_NMS_RTOL, DEMO_NMS_ATOL = 1e-4, 1e-7
 
 
 class SmokeFailure(RuntimeError):
@@ -541,6 +569,35 @@ def model_check(state_dict):
                   f"model {dtype}: top-100 overlap {overlap}")
 
 
+def conv_ablation_check() -> None:
+    """dla_34 @512 bf16 under the ``conv`` ablation from seeded random
+    weights: one forward with finite heads, and no DCN kernel launched."""
+    import torch
+
+    from centerpose_tpu_torch.config import update_config
+    from centerpose_tpu_torch.models.common import (to_channels_last,
+                                                    to_compute_dtype)
+    from centerpose_tpu_torch.models.factory import create_model
+    from centerpose_tpu_torch.ops import dcn_cuda as dc
+
+    cfg = update_config(flagship_cfg(), {"model": {"dcn_impl": "conv"}})
+    torch.manual_seed(0)
+    model = to_compute_dtype(to_channels_last(create_model(cfg).to("cuda")),
+                             torch.bfloat16).eval()
+    x = torch.randn(2, 512, 512, 3, generator=torch.Generator().manual_seed(1))
+    dc.reset_launch_counts()
+    with torch.inference_mode():
+        out = model(x.to("cuda"))
+    torch.cuda.synchronize()
+    n = sum(fn.launches for fn in dc.COUNTED)
+    for name, v in out.items():
+        check(bool(torch.isfinite(v).all()), f"conv ablation: head {name}")
+    check(n == 0, f"conv ablation: {n} DCN kernel launches")
+    say(f"  model bfloat16 512x512 batch 2, dcn_impl conv (seeded random "
+        f"weights): heads finite, DCN kernel launches {n}")
+    del model, out
+
+
 def match_confident(sa, ia, sb, ib, width: int):
     """Centers scoring >= CONFIDENT in either of two top-K lists (scores
     [B, K], flat y*W+x indices [B, K]) that find no center of the other
@@ -627,6 +684,178 @@ def serving(state_dict):
         f"({dt / n_iter * 1e3:.2f} ms per batch, host clock, synchronised); "
         f"score diff vs batch 1 {diff:.2e}")
     return launches, det, batch
+
+
+def match_rows(a, b, thresh: float):
+    """Rows [K, 39] of one frame from two runs: (rows scoring >= thresh on
+    either side, those without a row on the other side within DEMO_PX
+    pixels of box center and DEMO_SCORE in score, the worst center distance
+    and score difference of the matched ones)."""
+    import numpy as np
+
+    n = unmatched = 0
+    worst_px = worst_score = 0.0
+    for s1, s2 in ((a, b), (b, a)):
+        c2 = (s2[:, 0:2] + s2[:, 2:4]) / 2
+        for row in s1[s1[:, 4] >= thresh]:
+            n += 1
+            px = np.abs(c2 - (row[0:2] + row[2:4]) / 2).max(1)
+            ds = np.abs(s2[:, 4] - row[4])
+            ok = (px <= DEMO_PX) & (ds <= DEMO_SCORE)
+            if not ok.any():
+                unmatched += 1
+                continue
+            j = np.flatnonzero(ok)[np.argmin(ds[ok])]
+            worst_px = max(worst_px, float(px[j]))
+            worst_score = max(worst_score, float(ds[j]))
+    return n, unmatched, worst_px, worst_score
+
+
+def demo(state_dict, card: str, device: str = "cuda"):
+    """The demo main path: the flagship Detector over DEMO_FRAMES synthetic
+    frames through ``tools/demo.stream`` at batch DEMO_BATCH, held against
+    ``Detector.run``; ``soft_nms_39_jit`` on the card against the host
+    soft-NMS; the demo CLI on ``synthetic`` where cv2 imports.  Returns the
+    K1 launch counts by site of the stream's run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from centerpose_tpu_torch.data.synthetic import render_scene
+    from centerpose_tpu_torch.inference.detector import Detector
+    from centerpose_tpu_torch.ops import dcn_cuda as dc
+    from centerpose_tpu_torch.ops.soft_nms import soft_nms_39, soft_nms_39_jit
+    from centerpose_tpu_torch.tools import demo as demo_cli
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    cfg = flagship_cfg()
+    det = Detector(cfg, state_dict, device=device)
+    frames = [render_scene(np.random.default_rng(300 + i), 640, 480, 2)[0]
+              for i in range(DEMO_FRAMES)]
+    list(demo_cli.stream(det, frames[:DEMO_BATCH], DEMO_BATCH))  # warm-up
+    sync()
+    dc.reset_launch_counts()
+    t0 = time.perf_counter()
+    streamed = list(demo_cli.stream(det, frames, DEMO_BATCH))
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(dc.dcn_v2_fused.launches_by_site)
+    total = dc.dcn_v2_fused.launches
+    calls = -(-DEMO_FRAMES // DEMO_BATCH)
+    per_call = dc.KERNELS_PER_CALL[torch.bfloat16]
+    check(total == 16 * per_call * calls,
+          f"demo stream: K1 launches {total} for {calls} process calls")
+    want = {(cin, cout, hw, hw): n * per_call * calls
+            for cin, cout, hw, n in SITES}
+    check(launches == want, f"demo stream: K1 launches by site {launches}")
+    check(len(streamed) == DEMO_FRAMES
+          and all(f is g for (f, _), g in zip(streamed, frames)),
+          "demo stream: frames out of order")
+    # where the stream's time goes: the per-frame pre-process alone, then
+    # the batch-8 forward and decode alone (host clock, synchronised)
+    t0 = time.perf_counter()
+    pre = [det.pre_process(f)[0] for f in frames]
+    sync()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    batch = torch.cat(pre[:DEMO_BATCH])
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        det.process(batch)
+    sync()
+    net_ms = (time.perf_counter() - t0) * 1e3
+    del pre, batch
+    for i, (_, rows) in enumerate(streamed):
+        check(rows.shape == (100, 39) and bool(np.isfinite(rows).all()),
+              f"demo stream frame {i}: rows {rows.shape}")
+    # the same frames one at a time through Detector.run
+    run_ms = []
+    n_conf = unmatched = 0
+    worst_px = worst_score = 0.0
+    for i, (frame, rows) in enumerate(streamed):
+        ret = det.run(frame)
+        run_ms.append(ret["tot"] * 1e3)
+        n, u, px, ds = match_rows(rows, ret["results"][1],
+                                  cfg.test.vis_thresh)
+        n_conf += n
+        unmatched += u
+        worst_px, worst_score = max(worst_px, px), max(worst_score, ds)
+    say(f"  demo stream: {DEMO_FRAMES} frames 640x480 at batch {DEMO_BATCH} "
+        f"({calls} process calls) in {wall * 1e3:.2f} ms: "
+        f"{DEMO_FRAMES / wall:.2f} frames/s (host clock, synchronised); "
+        f"Detector.run {np.mean(run_ms):.2f} ms per frame (median "
+        f"{np.median(run_ms):.2f}); K1 launches {total} "
+        f"({total // calls} per call); alone: pre-process {pre_ms:.2f} ms "
+        f"for the {DEMO_FRAMES} frames, {calls} batch-8 process calls "
+        f"{net_ms:.2f} ms; {card}")
+    say(f"  demo rows vs Detector.run: {n_conf} rows score >= "
+        f"{cfg.test.vis_thresh} on either side, {unmatched} unmatched, worst "
+        f"center {worst_px:.3f} px, worst score diff {worst_score:.4f} "
+        f"(limits {DEMO_PX} px, {DEMO_SCORE})")
+    check(n_conf >= DEMO_FRAMES, f"demo: only {n_conf} confident rows")
+    check(unmatched == 0, f"demo: {unmatched} of {n_conf} confident rows "
+          "have no match in Detector.run's")
+
+    # the fixed-K soft-NMS on the card against the host's, by row identity
+    rows = torch.stack([torch.from_numpy(r) for _, r in streamed]).to(device)
+    soft_nms_39_jit(rows[0], thresh=0.0)  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    got = [soft_nms_39_jit(rows[i], thresh=0.0) for i in range(DEMO_FRAMES)]
+    sync()
+    nms_ms = (time.perf_counter() - t0) / DEMO_FRAMES * 1e3
+    worst = 0.0
+    n_rows = n_scored = 0
+    for i, (_, r) in enumerate(streamed):
+        dev = got[i].cpu().numpy()
+        check(dev.shape == (100, 39) and bool(np.isfinite(dev).all()),
+              f"soft_nms_39_jit frame {i}: {dev.shape}")
+        check(np.array_equal(np.delete(dev, 4, 1), np.delete(r, 4, 1)),
+              f"soft_nms_39_jit frame {i}: rows moved or changed")
+        # the host keeps the rows scoring above 0 (the decode's zero-score
+        # fill rows drop out), each with its decayed score
+        host = soft_nms_39(r, method=2, thresh=0.0)
+        by_row = {np.delete(h, 4).tobytes(): h[4] for h in host}
+        n_scored += int((r[:, 4] > 0).sum())
+        for d in dev:
+            want = by_row.get(np.delete(d, 4).tobytes())
+            if want is None:
+                continue
+            n_rows += 1
+            err = abs(float(d[4]) - float(want))
+            worst = max(worst, err / max(abs(float(want)), 1e-30))
+            check(err <= DEMO_NMS_RTOL * abs(float(want)) + DEMO_NMS_ATOL,
+                  f"soft_nms_39_jit frame {i}: score {d[4]} against the "
+                  f"host's {want}")
+    check(n_rows == n_scored > 0, f"soft_nms_39_jit: {n_rows} rows matched "
+          f"the host's of {n_scored} scoring above 0")
+    say(f"  soft_nms_39_jit [100, 39] on the card: {nms_ms:.3f} ms per call "
+        f"(host clock, synchronised, {DEMO_FRAMES} calls, thresh 0); "
+        f"{n_rows} rows against the host soft_nms_39, worst rel score diff "
+        f"{worst:.2e}; "
+        f"{card}")
+
+    # the demo CLI draws with cv2, which this machine may lack
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        say("  demo CLI --demo synthetic: not run, cv2 does not import here "
+            "(the drawing is host code; the device path above ran)")
+        return launches
+    with tempfile.TemporaryDirectory(prefix="cp_demo_") as tmp:
+        out = demo_cli.main(["--demo", "synthetic", "--out", tmp,
+                             "--device", device])
+        names = [f"synthetic_{i}" for i in range(4)]
+        check(out == {"images": names}, f"demo CLI: {out}")
+        for name in names:
+            img = cv2.imread(str(Path(tmp) / f"{name}.png"))
+            check(img is not None and img.shape == (480, 640, 3),
+                  f"demo CLI wrote no {name}.png")
+        say(f"  demo CLI --demo synthetic: wrote {len(names)} PNGs")
+    return launches
 
 
 def device_rows(prof):
@@ -1642,6 +1871,7 @@ def training_cli(card: str) -> None:
         check(k1 >= 16 * ap_forwards,
               f"training CLI: K1 {k1} below {16 * ap_forwards} for the AP "
               "passes")
+        best_checkpoint(cfg, log_dir / "model_best")
 
         # resume: a third epoch from model_last
         dc.reset_launch_counts()
@@ -1697,6 +1927,48 @@ def training_cli(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def best_checkpoint(cfg, path: Path) -> None:
+    """The training CLI's ``model_best`` through ``tools/evaluate.
+    load_detector`` on the card: the weights it restores are the file's,
+    bit for bit (the Detector holds them cast to the compute dtype,
+    BatchNorm's statistics in float32), and ``Detector.run`` launches K1."""
+    import numpy as np
+    import torch
+
+    from centerpose_tpu_torch.config import update_config
+    from centerpose_tpu_torch.ops import dcn_cuda as dc
+    from centerpose_tpu_torch.tools.evaluate import (checkpoint_state_dict,
+                                                     load_detector)
+    from centerpose_tpu_torch.train.checkpoints import load_checkpoint
+
+    cfg = update_config(cfg, {"test": {"model_path": str(path)}})
+    payload = load_checkpoint(str(path))
+    want = {**payload["model"], **{k: v for k, v in payload["bn"].items()
+                                   if k.endswith(("running_mean",
+                                                  "running_var"))}}
+    sd = checkpoint_state_dict(cfg, str(path))
+    check(all(_bit_equal(sd[k], v) for k, v in want.items()),
+          "model_best: restored weights differ from the file's")
+    det = load_detector(cfg, "cuda")
+    live = {**dict(det.model.named_parameters()),
+            **dict(det.model.named_buffers())}
+    for k, v in want.items():
+        t = live[k].detach()
+        check(_bit_equal(t.cpu(), v.to(t.dtype)),
+              f"model_best: the Detector's {k} differs from the file's")
+    dc.reset_launch_counts()
+    ret = det.run(scene(7))
+    torch.cuda.synchronize()
+    res = ret["results"][1]
+    check(dc.dcn_v2_fused.launches == 16 * dc.KERNELS_PER_CALL[
+        torch.bfloat16] and res.shape == (100, 39)
+        and bool(np.isfinite(res).all()),
+          f"model_best Detector.run: K1 launches {dc.dcn_v2_fused.launches}")
+    say(f"  model_best via load_detector: {len(want)} tensors bit-equal to "
+        f"the file's; Detector.run K1 launches {dc.dcn_v2_fused.launches}, "
+        f"top score {res[0, 4]:.4f}")
+
+
 def only_training(card: str) -> int:
     """``--only training``: the build, the training main path and its
     trace (no result line)."""
@@ -1749,11 +2021,13 @@ def main() -> int:
     state_dict = phase("load dla_34 snapshot",
                        lambda: state_dict_from_npz(str(NPZ)))
     phase("model check", lambda: model_check(state_dict))
+    phase("model check (conv ablation)", conv_ablation_check)
     phase("training model check", lambda: train_model_check(state_dict))
     launches, det, batch = phase("serving (main path)",
                                  lambda: serving(state_dict))
     phase("trace", lambda: trace(det, batch))
     del det
+    demo_launches = phase("demo (main path)", lambda: demo(state_dict, card))
     train_launches, trainer, fixed = phase("training (main path)",
                                            lambda: training(state_dict))
     phase("training trace", lambda: train_trace(trainer, fixed))
@@ -1764,8 +2038,9 @@ def main() -> int:
     phase("training CLI (main path)", lambda: training_cli(card))
     phase("backbones (training, main path)", lambda: backbone_training(card))
     for site, entry in entries.items():
-        entry["launches"] = launches.get(site, 0)
-        check(entry["launches"] > 0, f"K1 never launched at site {site}")
+        check(launches.get(site, 0) > 0 and demo_launches.get(site, 0) > 0,
+              f"K1 never launched at site {site}")
+        entry["launches"] = launches[site] + demo_launches[site]
     for (kernel, site), entry in train_entries.items():
         entry["launches"] = train_launches[kernel].get(site, 0)
         check(entry["launches"] > 0,

@@ -5,11 +5,13 @@ compiled graph."""
 
 from __future__ import annotations
 
+import os
 import re
 from pathlib import Path
 from unittest import mock
 
 import numpy as np
+import torch
 
 NPZ = str(Path(__file__).resolve().parent.parent
           / "output" / "dla34_hard_artifact" / "params_f16.npz")
@@ -23,6 +25,21 @@ _KEY = re.compile(r"\['([^']+)'\]")
 # against ~170 s)
 FAST_COMPILE = {"xla_backend_optimization_level": 0,
                 "xla_llvm_disable_expensive_passes": True}
+
+
+def share_cores_among_workers() -> int:
+    """Under pytest-xdist, give each worker's torch its share of the cores
+    and return it.  Every worker otherwise runs torch's default of one
+    OpenMP thread per core, which oversubscribes the machine by the worker
+    count and makes the port's tests 10-40x slower than alone."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+    if workers > 0:
+        torch.set_num_threads(
+            max(1, len(os.sched_getaffinity(0)) // workers))
+    return torch.get_num_threads()
+
+
+share_cores_among_workers()
 
 
 def jax_variables(path: str = NPZ) -> dict:

@@ -126,3 +126,18 @@ def test_convert_eval_format_matches_reference():
         results[img_id] = {1: rows}
     assert convert_eval_format(results) == \
         COCOHP.convert_eval_format(None, results)
+
+
+@pytest.mark.parametrize("layout", ["TRAM", "TRA"])
+def test_summarize_keypoints_matches_reference(layout):
+    gts, dts = _fixture(4)
+    acc = ref.KeypointEval(gts, dts).accumulate()
+    if layout == "TRA":  # the older layout without the max-detections axis
+        acc = {"precision": acc["precision"][..., 0],
+               "recall": acc["recall"][..., 0]}
+    want = ref.summarize_keypoints(acc)
+    got = port.summarize_keypoints(acc)
+    assert list(got) == list(want) and len(got) == 10
+    for k in want:
+        assert got[k] == want[k], (k, got[k], want[k])
+    assert 0 < got["AP"] < 1

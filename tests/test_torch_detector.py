@@ -70,16 +70,18 @@ def test_run_end_to_end_matches_jax(weights):
     got = ret["results"][1]
     assert got.shape == want.shape == (100, 39)
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-2)
-    for key in ("tot", "pre", "net", "post"):
+    for key in ("tot", "load", "pre", "net", "post", "merge"):
         assert ret[key] >= 0
+    assert ret["tot"] >= ret["load"] + ret["pre"] + ret["net"] + ret["post"]
 
 
 def test_unported_options_raise(weights):
-    # every architecture is ported; the reference's 'conv' DCN ablation is
-    # not, and its first forward says so
+    # every option the reference has now runs: the last one ported, the
+    # 'conv' DCN ablation, serves (a plain conv at each site, no offsets)
     det = Detector(torch_cfg(128, dcn_impl="conv"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        det.run_batch(np.zeros((1, 128, 128, 3), np.uint8))
+    assert not any("conv_offset_mask" in k for k in det.model.state_dict())
+    dets = det.run_batch(np.zeros((1, 128, 128, 3), np.uint8))
+    assert dets.shape == (1, 100, 40) and np.isfinite(dets).all()
 
 
 def test_multi_scale_and_nms_run(weights):

@@ -2,6 +2,7 @@
 yaml on its main paths (inference, training, evaluation and the training
 CLI); CUDA is never replaced quietly by the CPU."""
 
+import os
 import re
 import subprocess
 import sys
@@ -23,6 +24,9 @@ names = [m.name for m in pkgutil.walk_packages(
     centerpose_tpu_torch.__path__, "centerpose_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# the demo, the debugger and the importer check import without cv2 too
+assert {"centerpose_tpu_torch.utils.debugger", "centerpose_tpu_torch.tools.demo",
+        "centerpose_tpu_torch.tools.check_importer"} <= set(names)
 import chip_smoke  # importing must not run main()
 from centerpose_tpu_torch.config import default_config, update_config
 from centerpose_tpu_torch.inference.detector import Detector
@@ -90,10 +94,12 @@ print("GUARD_OK", len(names))
 
 
 def test_port_imports_without_jax_cv2_yaml():
-    from _torch_port import NPZ
+    from _torch_port import NPZ, share_cores_among_workers
 
+    env = dict(os.environ, OMP_NUM_THREADS=str(share_cores_among_workers()))
     proc = subprocess.run([sys.executable, "-c", _GUARD, NPZ], cwd=ROOT,
-                          capture_output=True, text=True, timeout=300)
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "GUARD_OK" in proc.stdout
     assert "[phase]" not in proc.stdout and "chip_smoke:" not in proc.stderr
@@ -111,10 +117,14 @@ def test_no_reference_imports_in_port_sources():
         text = f.read_text()
         hits = pattern.findall(text)
         # yaml may be imported lazily by the config loader only, cv2 by the
-        # COCO reader's image decoder only, inside a function (indented)
+        # COCO reader's image decoder, the debugger's drawing, the demo's
+        # video decoding and the smoke run's optional drawing check only,
+        # inside a function (indented)
         lazy_yaml = f.name == "defaults.py" and all(
             h[1] == "yaml" for h in hits)
-        lazy_cv2 = (f == PKG / "data" / "coco.py"
+        lazy_cv2 = (f in (PKG / "data" / "coco.py",
+                          PKG / "utils" / "debugger.py",
+                          PKG / "tools" / "demo.py", ROOT / "chip_smoke.py")
                     and all(h[1] == "cv2" for h in hits)
                     and not re.search(r"^(import|from)\s+cv2\b", text, re.M))
         assert not hits or lazy_yaml or lazy_cv2, (f, hits)

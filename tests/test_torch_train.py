@@ -166,13 +166,17 @@ def step64():
     return _step64()
 
 
-def _step64():
-    """One train step of dla_34 at 64x64, batch 2, f32, dcn_impl=xla, from
-    the snapshot, on a compact-wire batch of synthetic persons, in both
-    packages: (loss, stats, grads, params and batch_stats after it) each,
-    and the reference's gradients in float64."""
-    jcfg = jupdate(jax_cfg(64, "xla"), OV)
-    tcfg = update_config(torch_cfg(64, "xla"), OV)
+def _step64(dcn_impl: str = "xla", adam: bool = True):
+    """One train step of dla_34 at 64x64, batch 2, f32, ``dcn_impl`` (xla,
+    or the conv ablation, whose model has no offset/mask parameters: the
+    snapshot's are left out), from the snapshot, on a compact-wire batch of
+    synthetic persons, in both packages: (loss, stats, grads, params and
+    batch_stats after it) each, and the reference's gradients and
+    statistics in float64.  Without ``adam`` the parameters after the
+    update are left out (the reference's eager optax update takes ~20 s
+    here)."""
+    jcfg = jupdate(jax_cfg(64, dcn_impl), OV)
+    tcfg = update_config(torch_cfg(64, dcn_impl), OV)
     rng = np.random.default_rng(0)
     examples = []
     saved = jnative.available
@@ -189,6 +193,15 @@ def _step64():
 
     model = j_create_model(jcfg)
     var = jax_variables()
+    sd = state_dict_from_npz(NPZ)
+    if dcn_impl == "conv":
+        for path in [k for k in sd if "conv_offset_mask" in k]:
+            node = var["params"]
+            *parts, _ = path.split(".")
+            for part in parts[:-1]:
+                node = node[part]
+            node.pop(parts[-1], None)
+            del sd[path]
 
     def loss_fn(params, bs, b):
         b = j_unpack(b, jcfg)
@@ -208,26 +221,30 @@ def _step64():
 
     def loss64(params, bs, b):
         b = j_unpack(b, jcfg)
-        out, _ = model64.apply({"params": params, "batch_stats": bs},
-                               b["input"].astype(jnp.float64), train=True,
-                               mutable=["batch_stats"])
+        out, mut = model64.apply({"params": params, "batch_stats": bs},
+                                 b["input"].astype(jnp.float64), train=True,
+                                 mutable=["batch_stats"])
         out = {k: v.astype(jnp.float32) for k, v in out.items()}
-        return jlosses.multi_pose_loss(out, b, jcfg)[0]
+        return jlosses.multi_pose_loss(out, b, jcfg)[0], mut["batch_stats"]
 
     with jax.enable_x64(True):
         var64 = jax.tree_util.tree_map(
             lambda a: jnp.asarray(np.asarray(a), jnp.float64), var)
-        jgrads64 = _flat(jax.jit(jax.grad(loss64))(
-            var64["params"], var64["batch_stats"], jbatch), "params")
+        jgrads64, jbs64 = jax.jit(jax.grad(loss64, has_aux=True))(
+            var64["params"], var64["batch_stats"], jbatch)
+        jgrads64 = _flat(jgrads64, "params")
+        jbs64 = _flat(jbs64, "batch_stats")
     tx = j_make_optimizer(jcfg, 1000)
-    upd, _ = tx.update(jgrads, tx.init(var["params"]), var["params"])
+    params = {}
+    if adam:
+        upd, _ = tx.update(jgrads, tx.init(var["params"]), var["params"])
+        params = _flat(optax.apply_updates(var["params"], upd), "params")
     jax_side = {"stats": {k: float(v) for k, v in jstats.items()},
                 "grads": _flat(jgrads, "params"), "grads64": jgrads64,
-                "params": _flat(optax.apply_updates(var["params"], upd),
-                                "params"),
+                "batch_stats64": jbs64, "params": params,
                 "batch_stats": _flat(jbs, "batch_stats")}
 
-    trainer = Trainer(tcfg, state_dict_from_npz(NPZ), device="cpu")
+    trainer = Trainer(tcfg, sd, device="cpu")
     stats = trainer.backward(batch)
     grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).clone()
              for n, p in trainer.model.named_parameters()}
