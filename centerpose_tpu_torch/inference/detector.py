@@ -22,6 +22,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from centerpose_tpu_torch.config import Config
 from centerpose_tpu_torch.data.coco import read_image
@@ -60,6 +61,51 @@ def flip_lr_off(x: torch.Tensor) -> torch.Tensor:
     return x[:, :, :, _flip_perm(j), :].reshape(b, h, w, c)
 
 
+class ServingNet(nn.Module):
+    """The device stage of serving as a module: [N, H, W, 3] uint8
+    (normalised here) or float32 (already normalised) images -> decoded
+    [N, K, 40] (grid coordinates).  Optional flip test as a batch of two
+    (the flipped half built here), the forward, clamped sigmoid, decode at
+    K = ``test.topk``.  It owns the model, and ``mean`` and ``std`` are
+    buffers, so that an exported program (``tools/export.py``) holds them
+    with the weights."""
+
+    def __init__(self, model: nn.Module, cfg: Config):
+        super().__init__()
+        self.model = model
+        self.register_buffer("mean", torch.tensor(cfg.dataset.mean,
+                                                  dtype=torch.float32))
+        self.register_buffer("std", torch.tensor(cfg.dataset.std,
+                                                 dtype=torch.float32))
+        self.flip_test = cfg.test.flip_test
+        self.k = cfg.test.topk
+        self.loss = cfg.loss
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        if images.dtype == torch.uint8:
+            images = (images.float() / 255.0 - self.mean) / self.std
+        if self.flip_test:
+            images = torch.cat([images, images.flip(2)], dim=0)
+        out = self.model(images)
+        hm = sigmoid_clamped(out["hm"])
+        hm_hp = sigmoid_clamped(out["hm_hp"]) if self.loss.hm_hp else None
+        wh, hps = out["wh"], out["hps"]
+        reg = out["reg"] if self.loss.reg_offset else None
+        hp_offset = out["hp_offset"] if self.loss.reg_hp_offset else None
+        if self.flip_test:
+            n = images.shape[0] // 2
+            hm = (hm[:n] + hm[n:].flip(2)) / 2.0
+            wh = (wh[:n] + wh[n:].flip(2)) / 2.0
+            hps = (hps[:n] + flip_lr_off(hps[n:])) / 2.0
+            if hm_hp is not None:
+                hm_hp = (hm_hp[:n] + flip_lr(hm_hp[n:])) / 2.0
+            if reg is not None:
+                reg = reg[:n]
+            if hp_offset is not None:
+                hp_offset = hp_offset[:n]
+        return multi_pose_decode(hm, wh, hps, reg, hm_hp, hp_offset, k=self.k)
+
+
 class Detector:
     """Single-image / batched inference engine.
 
@@ -78,11 +124,8 @@ class Detector:
             load_state_dict(model, state_dict)
         self.model = to_channels_last(to_compute_dtype(
             model.to(self.device), model_dtype(cfg))).eval()
-        self.mean = torch.tensor(cfg.dataset.mean, dtype=torch.float32,
-                                 device=self.device)
-        self.std = torch.tensor(cfg.dataset.std, dtype=torch.float32,
-                                device=self.device)
-        self.flip_test = cfg.test.flip_test
+        self.net = ServingNet(self.model, cfg).to(self.device).eval()
+        self.mean, self.std = self.net.mean, self.net.std
         self.k = cfg.test.topk
 
     # ------------------------------------------------------------------
@@ -91,30 +134,8 @@ class Detector:
     @torch.inference_mode()
     def process(self, images: torch.Tensor) -> torch.Tensor:
         """[N, H, W, 3] uint8 (normalised here) or float32 (already
-        normalised) on the device -> decoded [N, K, 40]."""
-        cfg = self.cfg
-        if images.dtype == torch.uint8:
-            images = (images.float() / 255.0 - self.mean) / self.std
-        if self.flip_test:
-            images = torch.cat([images, images.flip(2)], dim=0)
-        out = self.model(images)
-        hm = sigmoid_clamped(out["hm"])
-        hm_hp = sigmoid_clamped(out["hm_hp"]) if cfg.loss.hm_hp else None
-        wh, hps = out["wh"], out["hps"]
-        reg = out["reg"] if cfg.loss.reg_offset else None
-        hp_offset = out["hp_offset"] if cfg.loss.reg_hp_offset else None
-        if self.flip_test:
-            n = images.shape[0] // 2
-            hm = (hm[:n] + hm[n:].flip(2)) / 2.0
-            wh = (wh[:n] + wh[n:].flip(2)) / 2.0
-            hps = (hps[:n] + flip_lr_off(hps[n:])) / 2.0
-            if hm_hp is not None:
-                hm_hp = (hm_hp[:n] + flip_lr(hm_hp[n:])) / 2.0
-            if reg is not None:
-                reg = reg[:n]
-            if hp_offset is not None:
-                hp_offset = hp_offset[:n]
-        return multi_pose_decode(hm, wh, hps, reg, hm_hp, hp_offset, k=self.k)
+        normalised) on the device -> decoded [N, K, 40] (``ServingNet``)."""
+        return self.net(images)
 
     # ------------------------------------------------------------------
     # host stages

@@ -141,17 +141,20 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 @contextlib.contextmanager
-def tf32_convs(x: torch.Tensor):
+def tf32_convs(x: torch.Tensor, dtype: torch.dtype | None = None):
     """cuDNN may use TF32 in the convolutions run inside where ``x``, the
     values they read, is a bf16 tensor on a CUDA device (nothing changes
     elsewhere: a float32 model keeps the caller's setting, off in the
-    tools); the caller's setting is restored on leaving.  TF32 reads bf16
+    tools); the caller's setting is restored on leaving.  ``dtype``: the
+    dtype the convolutions read where it is not x's (an exported bf16
+    program fed float32 images, whose graph records no such setting: in a
+    bf16 model every f32 convolution reads bf16 values and runs here).  TF32 reads bf16
     values exactly (8 significand bits of its 11) and its products are
     exact; its tensor-core sums are f32 sums in another order and rounding
     than FFMA's, which the bf16 rows' AP feels as it feels any summation
     order.  With TF32 off the serving batch's device time doubled on an
     H100 (PERF.md, section 6)."""
-    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+    if x.device.type != "cuda" or (dtype or x.dtype) != torch.bfloat16:
         yield
         return
     prev = torch.backends.cudnn.allow_tf32

@@ -28,10 +28,15 @@ Counterpart of ``centerpose_tpu/ops/dcn_pallas.py``.  Three parts:
   ``ctypes``.  ``forward_plan`` is the bf16 forward's launch plan (tile,
   split of the reduction, ring stages, shared memory), computed here from
   the shapes and checked by the kernel's entry point.
-* **Autograd.**  ``dcn_v2_fused`` (K1) and ``dcn_v2`` (K2) are
-  ``torch.autograd.Function``s on a CUDA tensor, with the backward kernel
-  as their backward (the reference's ``_fused_fwd``/``_fused_bwd`` and
-  ``_fwd``/``_bwd``/``_bwd_core``).  A CPU tensor takes the plain version
+* **Operators and autograd.**  K1 is the ``torch.library`` operator
+  ``centerpose::dcn_v2_fused`` (a fake kernel for tracing, a FLOP formula,
+  the plain version on the CPU, the kernel on CUDA), so that
+  ``torch.export`` and ``torch.compile`` keep it as one node; its
+  registered gradient launches the backward kernel (the reference's
+  ``_fused_fwd``/``_fused_bwd``).  K2 (``dcn_v2``) is a
+  ``torch.autograd.Function`` on a CUDA tensor with the same backward
+  (``_fwd``/``_bwd``/``_bwd_core``); it and the backward are bound by
+  ``ctypes`` and cannot be traced.  A CPU tensor takes the plain version
   (``ops/dcn.py``), differentiated by autograd; a CUDA tensor launches the
   kernel or raises.
 """
@@ -52,10 +57,11 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from centerpose_tpu_torch.ops.dcn import dcn_v2 as dcn_v2_plain
 from centerpose_tpu_torch.ops.dcn import (dcn_v2_backward_plain,
-                                          dcn_v2_fused_plain)
+                                          dcn_v2_fused_plain, offset_mask)
 
 # ---------------------------------------------------------------------------
 # Site policy: a copy of the reference's dispatch arithmetic
@@ -808,38 +814,88 @@ def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     return _DcnV2.apply(x, offset, mask, weight, bias, max_dy, edge_grad)
 
 
-class _DcnV2Fused(torch.autograd.Function):
-    """K1 forward; backward as the reference's ``_fused_bwd``: the backward
+def _fused_plain_om(x, omw, omb, weight, bias, max_dy, edge_grad):
+    """The plain version of K1 with K1's two outputs: y, and om [B,H,W,27]
+    f32 (the raw offsets, then the sigmoid-ed mask)."""
+    offset, mask = offset_mask(x, omw, omb)
+    y = dcn_v2_plain(x, offset, mask, weight, bias, max_dy, edge_grad)
+    return y, torch.cat([offset, mask], -1)
+
+
+@torch.library.custom_op("centerpose::dcn_v2_fused", mutates_args=(),
+                         device_types="cpu")
+def dcn_v2_fused_op(x: torch.Tensor, omw: torch.Tensor, omb: torch.Tensor,
+                    weight: torch.Tensor, bias: Optional[torch.Tensor],
+                    max_dy: Optional[float], edge_grad: float
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 as one operator, ``centerpose::dcn_v2_fused``: -> (y, om), as
+    ``launch_fused_forward``.  The CPU implementation is the plain version;
+    the CUDA one launches the kernel (and counts the launch, also in a
+    replay of an exported or compiled program)."""
+    return _fused_plain_om(x, omw, omb, weight, bias, max_dy, edge_grad)
+
+
+@dcn_v2_fused_op.register_kernel("cuda")
+def _(x, omw, omb, weight, bias, max_dy, edge_grad):
+    return launch_fused_forward(x, omw, omb, weight, bias, max_dy)
+
+
+@dcn_v2_fused_op.register_fake
+def _(x, omw, omb, weight, bias, max_dy, edge_grad):
+    b, h, w, _ = x.shape
+    return (x.new_empty((b, h, w, weight.shape[-1])),
+            x.new_empty((b, h, w, 27), dtype=torch.float32))
+
+
+def _fused_setup(ctx, inputs, output):
+    x, omw, omb, weight, bias, max_dy, edge_grad = inputs
+    ctx.max_dy, ctx.edge_grad = max_dy, edge_grad
+    ctx.has_bias = bias is not None
+    ctx.save_for_backward(x, omw, omb, weight, output[1])
+
+
+def _fused_backward(ctx, gy, _):
+    """As the reference's ``_fused_bwd`` on a CUDA tensor: the backward
     kernel on the om the forward wrote (never replayed), dmask chained
-    through the sigmoid, then the om conv's VJP in f32."""
-
-    @staticmethod
-    def forward(ctx, x, omw, omb, weight, bias, max_dy, edge_grad):
-        y, om = launch_fused_forward(x, omw, omb, weight, bias, max_dy)
-        ctx.max_dy = max_dy
-        ctx.edge_grad = edge_grad
-        ctx.has_bias = bias is not None
-        ctx.save_for_backward(x, omw, omb, weight, om)
-        return y
-
-    @staticmethod
-    def backward(ctx, gy):
-        x, omw, omb, weight, om = ctx.saved_tensors
+    through the sigmoid, then the om conv's VJP in f32.  On the CPU:
+    autograd of the plain version."""
+    x, omw, omb, weight, om = ctx.saved_tensors
+    if x.device.type == "cpu":
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_()
+                      for t in (x, omw, omb, weight)]
+            bias = torch.zeros(weight.shape[-1], requires_grad=True)
+            y = dcn_v2_fused_plain(*leaves, bias, ctx.max_dy, ctx.edge_grad)
+            dx, domw, domb, dw, dbias = torch.autograd.grad(
+                y, [*leaves, bias], gy.to(y.dtype))
+    else:
         offset = om[..., :18].contiguous()
         mask = om[..., 18:].contiguous()  # K1 stores the sigmoid-ed mask
         dx, doff, dmask, dw, dbias = launch_backward(
-            x, offset, mask, weight, gy.to(x.dtype).contiguous(), ctx.max_dy,
-            ctx.edge_grad)
+            x, offset, mask, weight, gy.to(x.dtype).contiguous(),
+            ctx.max_dy, ctx.edge_grad)
         dom = torch.cat([doff, dmask * mask * (1.0 - mask)], -1)
         dom = dom.permute(0, 3, 1, 2)  # NCHW view
         x32 = x.float().permute(0, 3, 1, 2)
         omw32 = omw.float().permute(3, 2, 0, 1)  # [27, Cin, 3, 3]
         dx_om = torch.nn.grad.conv2d_input(x32.shape, omw32, dom, padding=1)
-        domw = torch.nn.grad.conv2d_weight(x32, omw32.shape, dom, padding=1)
+        domw = torch.nn.grad.conv2d_weight(x32, omw32.shape, dom,
+                                           padding=1).permute(2, 3, 1, 0)
+        domb = dom.sum((0, 2, 3))
         dx = dx + dx_om.permute(0, 2, 3, 1)
-        return (dx.to(x.dtype), domw.permute(2, 3, 1, 0).to(omw.dtype),
-                dom.sum((0, 2, 3)).to(omb.dtype), dw.to(weight.dtype),
-                dbias if ctx.has_bias else None, None, None)
+    return (dx.to(x.dtype), domw.to(omw.dtype), domb.to(omb.dtype),
+            dw.to(weight.dtype), dbias if ctx.has_bias else None, None, None)
+
+
+dcn_v2_fused_op.register_autograd(_fused_backward, setup_context=_fused_setup)
+
+
+@register_flop_formula(torch.ops.centerpose.dcn_v2_fused)
+def _fused_flops(x_shape, omw_shape, omb_shape, weight_shape, *args,
+                 **kwargs) -> int:
+    """The om conv and the product: 2 B H W 9 Cin (Cout + 27)."""
+    b, h, w, cin = x_shape
+    return 2 * b * h * w * 9 * cin * (weight_shape[-1] + 27)
 
 
 def dcn_v2_fused(x: torch.Tensor, omw: torch.Tensor, omb: torch.Tensor,
@@ -852,15 +908,20 @@ def dcn_v2_fused(x: torch.Tensor, omw: torch.Tensor, omb: torch.Tensor,
     the clamp's gradient at exactly |dy| = max_dy in the backward.  ->
     [B,H,W,Cout] in x's dtype.
 
+    It calls the operator ``centerpose::dcn_v2_fused`` (``torch.export``
+    and ``torch.compile`` keep it as one node), except on the CPU with
+    gradients on, where the plain version is differentiated by autograd.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (x, omw, omb and weight float32 or bfloat16, all one dtype; bias
     float32, added before the output's rounding as the reference does;
     all contiguous) or raises, and its gradient launches the backward
     kernel."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and torch.is_grad_enabled():
         return dcn_v2_fused_plain(x, omw, omb, weight, bias, max_dy,
                                   edge_grad)
-    return _DcnV2Fused.apply(x, omw, omb, weight, bias, max_dy, edge_grad)
+    return dcn_v2_fused_op(x, omw, omb, weight, bias,
+                           None if max_dy is None else float(max_dy),
+                           float(edge_grad))[0]
 
 
 # Launch counts of the kernels: a successful launch adds to its wrapper's

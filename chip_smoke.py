@@ -61,6 +61,19 @@ took:
    frame; ``soft_nms_39_jit`` on the card on each frame's rows against the
    host ``soft_nms_39``, ms per call; where cv2 imports, the demo CLI on
    ``--demo synthetic`` (4 PNGs), else a line saying it was not run;
+7c. export, a main path: the flagship's serving function
+   (``inference/detector.ServingNet``) at batch 8 from the snapshot,
+   exported with ``torch.export`` (``tools/export.export_serving``) on 8
+   pre-processed frames: 16 K1 operator nodes in the graph; saved to a
+   temporary directory, reloaded through ``tools/export.load_serving``
+   (which runs a bf16 program with TF32 on in cuDNN, as eager serving
+   runs its convolutions) and run: 16 K1 launches, rows bit-equal to
+   ``Detector.process`` on the same input; then compiled
+   (``torch.compile``, fullgraph): 16 K1 launches, confident rows within
+   DEMO_PX and DEMO_SCORE of eager's; the export, save, load and compile
+   seconds, the artifact's MB, FLOPs per call, the peak temporary MB, ms
+   per call compiled, reloaded and eager, and one traced call of each
+   (device busy of wall);
 8. training, a main path: the port's ``Trainer`` at batch 8, bfloat16,
    ``pallas_full``, compact wire, on batches encoded by the port's
    ``encode_example`` (train augmentation on) from synthetic frames: one
@@ -117,10 +130,18 @@ took:
    (ms per step, images/s), 10 steps on one fixed batch whose loss must
    fall, and no DCN kernel launched.
 
-``python3 chip_smoke.py --only training`` runs the build, the training
-main path and its trace alone (to compare two trees in one call).
+14. bench suite: ``tools/bench_suite`` (dla_34 ``pallas_full/bfloat16``
+   infer at batch 1 and 8 and train at batch 8; res_18 ``bfloat16`` infer
+   at batch 1 and 8) and ``tools/bench_eval`` (the mobilenetv3 video row
+   over 64 frames, the hrnet_w32 multi-scale flip row over 8 images,
+   serial and pipelined); each row printed as JSON with the card.
 
-Then it prints the kernels' JSON line, the card's name and power limit, and
+``python3 chip_smoke.py --only training`` runs the build, the training
+main path and its trace alone, ``--only serving`` the build and the
+serving main path (to compare two trees in one call).
+
+Then it prints the kernels' JSON line (K1's ``launches``: the serving,
+demo and export phases' together), the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 exit code is then not 0.  Without a CUDA device, or outside the
 repository, it prints no result and exits with 1.  It writes nothing but
@@ -253,6 +274,15 @@ NATIVE_EXAMPLES, TOL_NATIVE = 64, 1e-5
 DEMO_FRAMES, DEMO_BATCH = 32, 8
 DEMO_PX, DEMO_SCORE = 0.25, 0.01
 DEMO_NMS_RTOL, DEMO_NMS_ATOL = 1e-4, 1e-7
+# The export phase: the flagship's serving function exported at the serving
+# batch; the reloaded program's rows bit-equal to Detector.process's (the
+# same ops on the same input, the same TF32 scope), the compiled one's
+# matched to them at the demo's limits (Inductor fuses the elementwise
+# work around the convs and the decode).
+EXPORT_BATCH = 8
+# The bench suite phase: timed calls per infer row (train rows take
+# max(5, BENCH_ITERS // 2) steps), video frames, multi-scale flip images.
+BENCH_ITERS, BENCH_FRAMES, BENCH_IMAGES = 10, 64, 8
 
 
 class SmokeFailure(RuntimeError):
@@ -856,6 +886,168 @@ def demo(state_dict, card: str, device: str = "cuda"):
                   f"demo CLI wrote no {name}.png")
         say(f"  demo CLI --demo synthetic: wrote {len(names)} PNGs")
     return launches
+
+
+def export_phase(state_dict, card: str, device: str = "cuda"):
+    """The deployment path: the flagship's serving function exported with
+    ``torch.export`` at batch EXPORT_BATCH, saved, reloaded through the
+    port's loader (``tools/export.load_serving``) and run, then compiled
+    (``torch.compile``, fullgraph).  Returns the K1 launch counts by site
+    of the reloaded and the compiled call."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from centerpose_tpu_torch.data.synthetic import render_scene
+    from centerpose_tpu_torch.inference.detector import Detector
+    from centerpose_tpu_torch.ops import dcn_cuda as dc
+    from centerpose_tpu_torch.tools.export import (export_serving,
+                                                   load_serving,
+                                                   save_serving)
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    det = Detector(flagship_cfg(), state_dict, device=device)
+    frames = [render_scene(np.random.default_rng(400 + i), 640, 480, 2)[0]
+              for i in range(EXPORT_BATCH)]
+    pre = [det.pre_process(f) for f in frames]
+    x = torch.cat([p[0] for p in pre]).float()
+    x = (x / 255.0 - det.mean) / det.std  # the program takes float32
+    with torch.inference_mode():
+        eager = det.process(x)
+    t0 = time.perf_counter()
+    program = export_serving(det, x)
+    t_export = time.perf_counter() - t0
+    op = torch.ops.centerpose.dcn_v2_fused.default
+    calls = [n.target for n in program.graph.nodes
+             if n.op == "call_function"]
+    nodes = calls.count(op)
+    asserts = calls.count(torch.ops.aten._assert_tensor_metadata.default)
+    check(nodes == 16, f"export: {nodes} K1 nodes in the graph, not 16")
+    per_call = dc.KERNELS_PER_CALL[torch.bfloat16]
+    want_sites = {(cin, cout, hw, hw): n * per_call
+                  for cin, cout, hw, n in SITES}
+    launches, counted = {}, {}
+
+    def run_counted(fn, what):
+        dc.reset_launch_counts()
+        out = fn(x)
+        sync()
+        sites = dict(dc.dcn_v2_fused.launches_by_site)
+        counted[what] = dc.dcn_v2_fused.launches
+        check(counted[what] == 16 * per_call and sites == want_sites,
+              f"{what}: K1 launches {counted[what]} ({sites})")
+        for site, n in sites.items():
+            launches[site] = launches.get(site, 0) + n
+        check(tuple(out.shape) == (EXPORT_BATCH, 100, 40)
+              and bool(torch.isfinite(out).all()), f"{what}: {out.shape}")
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="cp_export_") as tmp:
+        path = str(Path(tmp) / "dla_34_b8.pt2")
+        t0 = time.perf_counter()
+        save_serving(program, det, path)
+        t_save = time.perf_counter() - t0
+        size_mb = Path(path).stat().st_size / 1e6
+        t0 = time.perf_counter()
+        served = load_serving(path)
+        t_load = time.perf_counter() - t0
+    reloaded = run_counted(served, "reloaded program")
+    equal = torch.equal(reloaded, eager)
+    say(f"  export dla_34 bf16 pallas_full batch {EXPORT_BATCH}: export "
+        f"{t_export:.2f} s, save {t_save:.2f} s, load {t_load:.2f} s, "
+        f"{size_mb:.2f} MB; graph {len(calls)} calls ({asserts} dtype "
+        f"asserts), K1 nodes {nodes}; reloaded call K1 launches "
+        f"{counted['reloaded program']}; rows bit-equal to Detector.process: "
+        f"{equal}")
+    check(equal, "export: the reloaded program's rows differ from "
+          f"Detector.process's (max |diff| "
+          f"{(reloaded - eager).abs().max().item():.3e})")
+
+    engine = served.compiled()
+    t0 = time.perf_counter()
+    engine(x)
+    sync()
+    t_compile = time.perf_counter() - t0
+    flops = served.flops(x)
+    peak_mb = float("nan")
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    compiled = run_counted(engine, "compiled program")
+    if torch.device(device).type == "cuda":
+        peak_mb = (torch.cuda.max_memory_allocated() - base
+                   - compiled.numel() * compiled.element_size()) / 1e6
+    n_conf = unmatched = 0
+    worst_px = worst_score = 0.0
+    a, b = compiled.cpu().numpy(), eager.cpu().numpy()
+    for i, (_, meta) in enumerate(pre):
+        rows_a = det.post_process(a[i:i + 1], meta)[1]
+        rows_b = det.post_process(b[i:i + 1], meta)[1]
+        n, u, px, ds = match_rows(rows_a, rows_b, det.cfg.test.vis_thresh)
+        if u:
+            for what, rows in (("compiled", rows_a), ("eager", rows_b)):
+                top = rows[rows[:, 4] >= det.cfg.test.vis_thresh - 0.05]
+                say(f"    frame {i} {what}: " + "; ".join(
+                    f"score {r[4]:.4f} center ({(r[0] + r[2]) / 2:.3f}, "
+                    f"{(r[1] + r[3]) / 2:.3f})" for r in top))
+        n_conf += n
+        unmatched += u
+        worst_px, worst_score = max(worst_px, px), max(worst_score, ds)
+    ms_compiled = cuda_ms(lambda: engine(x), 10)
+    ms_reloaded = cuda_ms(lambda: served(x), 10)
+    ms_eager = cuda_ms(lambda: det.process(x), 10)
+    traced = {}
+    if torch.device(device).type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        for what, fn in (("eager", det.process), ("reloaded", served),
+                         ("compiled", engine)):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn(x)
+                sync()
+                wall = (time.perf_counter() - t0) * 1e3
+            busy = sum(r[0] for r in device_rows(prof))
+            traced[what] = f"{busy:.3f} of {wall:.3f}"
+    say(f"  AOT (torch.compile, fullgraph) of the reloaded program: compile "
+        f"{t_compile:.2f} s; {flops:.4e} FLOPs per call (FlopCounterMode, "
+        f"K1 by its formula); weights {served.weight_bytes() / 1e6:.1f} MB, "
+        f"peak temp {peak_mb:.1f} MB; compiled call K1 launches "
+        f"{counted['compiled program']}; ms per call (CUDA events, 10 calls): "
+        f"compiled {ms_compiled:.3f}, reloaded {ms_reloaded:.3f}, eager "
+        f"{ms_eager:.3f}; one traced call each, device busy of wall ms: "
+        + ", ".join(f"{k} {v}" for k, v in traced.items()) + f"; {card}")
+    say(f"  compiled rows vs Detector.process: {n_conf} rows score >= "
+        f"{det.cfg.test.vis_thresh} on either side, {unmatched} unmatched, "
+        f"worst center {worst_px:.3f} px, worst score diff {worst_score:.4f} "
+        f"(limits {DEMO_PX} px, {DEMO_SCORE})")
+    check(n_conf >= EXPORT_BATCH, f"export: only {n_conf} confident rows")
+    check(unmatched == 0, f"export: {unmatched} of {n_conf} confident rows "
+          "of the compiled program have no match in Detector.process's")
+    return launches
+
+
+def bench_phase(card: str) -> None:
+    """The per-backbone bench suite (``tools/bench_suite``: dla_34
+    pallas_full/bfloat16 infer at batch 1 and 8 and train at batch 8,
+    res_18 bfloat16 infer at batch 1 and 8) and ``tools/bench_eval``'s
+    video row (64 frames) and multi-scale flip row (8 images); every row
+    printed with the card."""
+    from centerpose_tpu_torch.tools import bench_eval, bench_suite
+
+    rows = bench_suite.run(["dla_34"], ["infer", "train"], iters=BENCH_ITERS)
+    rows += bench_suite.run(["res_18"], ["infer"], iters=BENCH_ITERS)
+    rows += bench_eval.bench_video(BENCH_FRAMES)
+    rows += bench_eval.bench_msflip_eval(BENCH_IMAGES)
+    for row in rows:
+        check(row["images_per_s"] > 0 and row["card"] == card,
+              f"bench row {row}")
+    say(f"  bench suite: {len(rows)} rows; {card}")
 
 
 def device_rows(prof):
@@ -1983,6 +2175,18 @@ def only_training(card: str) -> int:
     return 0
 
 
+def only_serving(card: str) -> int:
+    """``--only serving``: the build and the serving main path alone (no
+    result line)."""
+    from centerpose_tpu_torch.weights import state_dict_from_npz
+
+    phase("build CUDA library", build)
+    state_dict = state_dict_from_npz(str(NPZ))
+    phase("serving (main path)", lambda: serving(state_dict))
+    say(card)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2009,6 +2213,8 @@ def main() -> int:
         f"{torch.__version__} CUDA {torch.version.cuda}")
     if sys.argv[1:] == ["--only", "training"]:
         return only_training(card)
+    if sys.argv[1:] == ["--only", "serving"]:
+        return only_serving(card)
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     phase("build CUDA library", build)
     entries = phase("kernel check", kernel_check)
@@ -2028,6 +2234,10 @@ def main() -> int:
     phase("trace", lambda: trace(det, batch))
     del det
     demo_launches = phase("demo (main path)", lambda: demo(state_dict, card))
+    t_new = time.perf_counter()
+    export_launches = phase("export (main path)",
+                            lambda: export_phase(state_dict, card))
+    t_new = time.perf_counter() - t_new
     train_launches, trainer, fixed = phase("training (main path)",
                                            lambda: training(state_dict))
     phase("training trace", lambda: train_trace(trainer, fixed))
@@ -2037,10 +2247,16 @@ def main() -> int:
     del ds
     phase("training CLI (main path)", lambda: training_cli(card))
     phase("backbones (training, main path)", lambda: backbone_training(card))
+    t0 = time.perf_counter()
+    phase("bench suite", lambda: bench_phase(card))
+    t_new += time.perf_counter() - t0
+    say(f"  export and bench suite phases: {t_new:.2f} s together")
     for site, entry in entries.items():
-        check(launches.get(site, 0) > 0 and demo_launches.get(site, 0) > 0,
+        check(launches.get(site, 0) > 0 and demo_launches.get(site, 0) > 0
+              and export_launches.get(site, 0) > 0,
               f"K1 never launched at site {site}")
-        entry["launches"] = launches[site] + demo_launches[site]
+        entry["launches"] = (launches[site] + demo_launches[site]
+                             + export_launches[site])
     for (kernel, site), entry in train_entries.items():
         entry["launches"] = train_launches[kernel].get(site, 0)
         check(entry["launches"] > 0,

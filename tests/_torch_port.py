@@ -42,6 +42,23 @@ def share_cores_among_workers() -> int:
 share_cores_among_workers()
 
 
+class FakeCudaTensor(torch.Tensor):
+    """Stands in for a CUDA tensor (this machine has none): a tensor with
+    no storage on the CUDA device, whose operators go on to the CUDA
+    kernels registered for them (K1's operator among them)."""
+
+    @staticmethod
+    def __new__(cls, t):
+        return torch.Tensor._make_wrapper_subclass(cls, t.shape,
+                                                   dtype=t.dtype,
+                                                   device="cuda")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        with torch._C._DisableTorchDispatch():
+            return func(*args, **(kwargs or {}))
+
+
 def jax_variables(path: str = NPZ) -> dict:
     """The snapshot as a nested {params, batch_stats} dict of float32
     arrays (what ``Module.apply`` takes; no flax init needed)."""

@@ -24,9 +24,13 @@ names = [m.name for m in pkgutil.walk_packages(
     centerpose_tpu_torch.__path__, "centerpose_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-# the demo, the debugger and the importer check import without cv2 too
+# the demo, the debugger, the importer check, the export and the bench
+# tools import without cv2 too
 assert {"centerpose_tpu_torch.utils.debugger", "centerpose_tpu_torch.tools.demo",
-        "centerpose_tpu_torch.tools.check_importer"} <= set(names)
+        "centerpose_tpu_torch.tools.check_importer",
+        "centerpose_tpu_torch.tools.export",
+        "centerpose_tpu_torch.tools.bench_suite",
+        "centerpose_tpu_torch.tools.bench_eval"} <= set(names)
 import chip_smoke  # importing must not run main()
 from centerpose_tpu_torch.config import default_config, update_config
 from centerpose_tpu_torch.inference.detector import Detector
@@ -83,9 +87,18 @@ assert len(MODEL_FACTORY) == 14
 bb = update_config(default_config(), {"model": {
     "name": "mobilenetv3", "input_res": 64, "output_res": 16}})
 npz = sys.argv[1].replace("dla34_hard_artifact", "mbv3_hard_artifact")
-dets = Detector(bb, state_dict_from_npz(npz), device="cpu").run_batch(
-    np.zeros((1, 64, 64, 3), np.uint8))
+bb_det = Detector(bb, state_dict_from_npz(npz), device="cpu")
+dets = bb_det.run_batch(np.zeros((1, 64, 64, 3), np.uint8))
 assert dets.shape == (1, 100, 40) and np.isfinite(dets).all()
+# deployment: the serving function exported, saved, reloaded and run
+from centerpose_tpu_torch.tools import export as export_cli
+x = export_cli.example_input(bb, 1, "cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    export_cli.save_serving(export_cli.export_serving(bb_det, x), bb_det,
+                            tmp + "/mbv3.pt2")
+    served = export_cli.load_serving(tmp + "/mbv3.pt2")
+import torch
+assert torch.equal(served(x), bb_det.process(x))
 bad = [m for m in ("jax", "flax", "optax", "cv2", "yaml", "centerpose_tpu")
        if sys.modules.get(m) is not None]
 assert not bad, bad
@@ -145,31 +158,10 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
         Detector(torch_cfg(128))  # the default device is the card
 
 
-class _FakeCudaTensor:
-    """Stands in for a CUDA tensor (this machine has none)."""
-
-    def __init__(self, t):
-        self._t = t
-        self.device = torch.device("cuda", 0)
-        self.dtype = t.dtype
-        self.shape = t.shape
-
-    def dim(self):
-        return self._t.dim()
-
-    def is_contiguous(self):
-        return True
-
-    def contiguous(self):
-        return self
-
-    def to(self, dtype):
-        assert dtype == self.dtype
-        return self
-
-
 def test_kernel_wrapper_raises_for_cuda_without_library(monkeypatch):
     from centerpose_tpu_torch.ops import dcn_cuda as dc
+
+    from _torch_port import FakeCudaTensor
 
     monkeypatch.setattr(dc, "_libs", {})
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
@@ -180,7 +172,7 @@ def test_kernel_wrapper_raises_for_cuda_without_library(monkeypatch):
                         lambda name: Path(f"/nonexistent/libcp_{name}.so"))
 
     def fake(*shapes):
-        return [_FakeCudaTensor(torch.zeros(s)) for s in shapes]
+        return [FakeCudaTensor(torch.zeros(s)) for s in shapes]
 
     x, w, bias, ct = fake((1, 8, 16, 8), (3, 3, 8, 4), (4,), (1, 8, 16, 4))
     omw, omb, off, mask = fake((3, 3, 8, 27), (27,), (1, 8, 16, 18),
