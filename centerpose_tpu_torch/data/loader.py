@@ -3,7 +3,9 @@
 Counterpart of ``centerpose_tpu/data/loader.py``:
 
 - ``DataLoader``: each process owns indices ``[shard_id::num_shards]`` of
-  the epoch's permutation (seeded by ``(seed, epoch)``), and every example
+  the epoch's permutation (seeded by ``(seed, epoch)``), cut to
+  ``len(dataset) // num_shards`` so that every process yields
+  ``steps_per_epoch()`` batches, and every example
   is encoded with its own generator seeded by ``(seed, epoch, idx)``, so a
   batch does not depend on the number of workers.  Encoding runs in a pool
   of spawned processes: the parent holds CUDA and threads by then, and a
@@ -105,7 +107,11 @@ class DataLoader:
         n = len(self.dataset)
         rng = np.random.default_rng((self.seed, epoch))
         order = rng.permutation(n) if self.is_train else np.arange(n)
-        local = order[self.shard_id::self.num_shards]
+        # every shard the same length, len(dataset) // num_shards, so each
+        # rank yields steps_per_epoch() batches (a rank with one more
+        # would wait forever in its extra step's collectives); batch k of
+        # the shards together is order[k * B:(k + 1) * B] for the global B
+        local = order[self.shard_id::self.num_shards][:n // self.num_shards]
         nb = len(local) // self.batch_size
         if not self.drop_last and len(local) % self.batch_size:
             nb += 1

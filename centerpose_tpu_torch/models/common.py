@@ -31,6 +31,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from centerpose_tpu_torch.parallel.mesh import all_reduce_sum
+
 # Heatmap-head bias init: -log((1 - pi) / pi) with prior pi = 0.1.
 HM_BIAS_INIT = -2.19
 
@@ -58,16 +60,35 @@ class _TrainBatchNorm(torch.autograd.Function):
     those statistics, computed in float32 and returned in x's dtype); the
     gradient is torch's train-mode batch-norm backward on the same mean and
     ``rsqrt(var + eps)``, or flax's with its rounding where ``grad_dtype``
-    is given (``_flax_grads``).  Returns ``(y, mean, var)``."""
+    is given (``_flax_grads``).  Returns ``(y, mean, var)``.
+
+    With a process ``group`` the batch is the ranks' batches together, as
+    the reference's one SPMD step sees it: the forward all-reduces ``[sum
+    x, sum x^2, n]`` (one float32 tensor) and takes the statistics from
+    the global sums and count N; the backward all-reduces the two channel
+    sums the input gradient reads (``_sync_grads``, ``_flax_grads``).  The
+    scale and bias gradients stay this rank's partial sums, which the
+    data-parallel average of the gradients adds up."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, grad_dtype):
+    def forward(ctx, x, weight, bias, eps, grad_dtype, group):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean((0, 2, 3))
-        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        count = None
+        if group is None:
+            mean = xf.mean((0, 2, 3))
+            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        else:
+            c = x.shape[1]
+            sums = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                              xf.new_full((1,), xf.numel() // c)])
+            all_reduce_sum(sums, group)
+            count = sums[2 * c]
+            mean = sums[:c] / count
+            var = (sums[c:2 * c] / count - mean * mean).clamp_min(0.0)
         ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
         ctx.eps = eps
         ctx.grad_dtype = grad_dtype
+        ctx.group, ctx.count = group, count
         ctx.mark_non_differentiable(mean, var)
         return F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps), \
             mean, var
@@ -77,14 +98,43 @@ class _TrainBatchNorm(torch.autograd.Function):
         x, weight, mean, invstd = ctx.saved_tensors
         if ctx.grad_dtype is not None:
             return (*_flax_grads(gy, x, weight, mean, invstd, ctx.eps,
-                                 ctx.grad_dtype), None, None)
+                                 ctx.grad_dtype, ctx.group, ctx.count),
+                    None, None, None)
+        if ctx.group is not None:
+            return (*_sync_grads(gy, x, weight, mean, invstd, ctx.group,
+                                 ctx.count), None, None, None)
         gx, gw, gb = torch.ops.aten.native_batch_norm_backward(
             gy, x, weight, None, None, mean, invstd, True, ctx.eps,
             list(ctx.needs_input_grad[:3]))
-        return gx, gw, gb, None, None
+        return gx, gw, gb, None, None, None
 
 
-def _flax_grads(gy, x, weight, mean, invstd, eps, dtype):
+def _ch(t: torch.Tensor) -> torch.Tensor:
+    """A per-channel vector broadcast over NCHW."""
+    return t.view(1, -1, 1, 1)
+
+
+def _sync_grads(gy, x, weight, mean, invstd, group, count):
+    """(input, scale, bias) gradients of train-mode BatchNorm over the
+    ranks of ``group`` (``SyncBatchNorm``'s backward): the input gradient
+    ``(gy - E[gy] - (x - mean) invstd^2 E[gy (x - mean)]) invstd scale``
+    from the all-reduced ``sum gy`` and ``sum gy (x - mean)`` and the
+    global count; the scale and bias gradients this rank's own sums."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    g = gy.to(xf.dtype)
+    xmu = xf - _ch(mean)
+    c = x.shape[1]
+    sums = torch.cat([g.sum((0, 2, 3)), (g * xmu).sum((0, 2, 3))])
+    gw, gb = sums[c:] * invstd, sums[:c].clone()
+    all_reduce_sum(sums, group)
+    mean_dy, mean_dy_xmu = sums[:c] / count, sums[c:] / count
+    gx = ((g - _ch(mean_dy) - xmu * _ch(invstd * invstd * mean_dy_xmu))
+          * _ch(invstd * weight))
+    return gx.to(x.dtype), gw, gb
+
+
+def _flax_grads(gy, x, weight, mean, invstd, eps, dtype, group=None,
+                count=None):
     """(input, scale, bias) gradients of flax's train-mode BatchNorm of a
     value the reference holds in ``dtype`` (bf16), as ``jax.grad`` of it
     computes them.  Flax widens that value twice, for the statistics and
@@ -95,19 +145,24 @@ def _flax_grads(gy, x, weight, mean, invstd, eps, dtype):
     scale``); ``dmean / n + x * (dvar * 2 / n)`` through ``E[x]`` and
     ``E[x^2]``, with ``dvar = sum(gy (x - mean)) * scale * -0.5 rsqrt(var +
     eps) / (var + eps)`` and ``dmean = -sum(gy * mul) - dvar * 2 mean``.
-    The input gradient is returned in x's dtype."""
-    def ch(t):
-        return t.view(1, -1, 1, 1)
-
+    The input gradient is returned in x's dtype.  With a process
+    ``group`` the two sums are all-reduced and n is the global ``count``;
+    the scale and bias gradients stay this rank's."""
     xdt, gy, x = x.dtype, gy.float(), x.float()
     n = x.numel() // x.shape[1]
-    direct = gy * ch(invstd * weight)
-    dmul = (gy * (x - ch(mean))).sum((0, 2, 3))
+    direct = gy * _ch(invstd * weight)
+    dmul = (gy * (x - _ch(mean))).sum((0, 2, 3))
+    dsum = direct.sum((0, 2, 3))
+    gw = dmul * invstd
+    if group is not None:
+        c = x.shape[1]
+        sums = all_reduce_sum(torch.cat([dmul, dsum]), group)
+        dmul, dsum, n = sums[:c], sums[c:], count
     dvar = dmul * weight * (-0.5 * invstd * invstd * invstd)
-    dmean = -direct.sum((0, 2, 3)) - dvar * (2.0 * mean)
-    stats = ch(dmean / n) + x * ch(dvar * (2.0 / n))
+    dmean = -dsum - dvar * (2.0 * mean)
+    stats = _ch(dmean / n) + x * _ch(dvar * (2.0 / n))
     gx = (direct.to(dtype) + stats.to(dtype)).to(xdt)
-    return gx, dmul * invstd, gy.sum((0, 2, 3))
+    return gx, gw, gy.sum((0, 2, 3))
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -119,10 +174,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     reference holds ``x`` in, x's own unless given (``conv_bn`` hands over
     an f32 conv result the reference holds as bf16); where it is not
     float32 the input gradient rounds as the reference's (``_flax_grads``).
-    Eval mode is ``nn.BatchNorm2d``'s."""
+    Eval mode is ``nn.BatchNorm2d``'s.  ``process_group``: None, or the
+    group whose ranks' batches train mode normalises together
+    (``parallel/mesh.sync_batch_norm``); the running statistics then
+    update from the global ones, equal on every rank."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
+        self.process_group = None
 
     def forward(self, x: torch.Tensor,
                 grad_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -131,7 +190,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         if grad_dtype is None and _narrow(x.dtype):
             grad_dtype = x.dtype
         y, mean, var = _TrainBatchNorm.apply(x, self.weight, self.bias,
-                                             self.eps, grad_dtype)
+                                             self.eps, grad_dtype,
+                                             self.process_group)
         with torch.no_grad():
             m = 1.0 - self.momentum
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)

@@ -446,7 +446,10 @@ def build_library() -> dict:
     """Compile every kernel source whose hashed library is missing, one
     ``nvcc`` per source, all started together; returns {name: path}.  The
     compiler's report (registers, shared memory, spills) is kept beside
-    each library as ``.log``."""
+    each library as ``.log``.  Each file is written under a name of this
+    process and then renamed, so processes that build at once (the ranks
+    of a data-parallel run) each write their own and a reader never opens
+    half of one."""
     paths = {name: library_path(name) for name in _SOURCES}
     todo = {name: so for name, so in paths.items() if not so.exists()}
     if not todo:
@@ -466,7 +469,9 @@ def build_library() -> dict:
             errors.append(f"nvcc {_SOURCES[name].name} failed "
                           f"({proc.returncode}):\n{err}")
             continue
-        todo[name].with_suffix(".log").write_text(out + err)
+        log = tmp.with_name(f"{tmp.name}.log")
+        log.write_text(out + err)
+        os.replace(log, todo[name].with_suffix(".log"))
         os.replace(tmp, todo[name])
     if errors:
         raise RuntimeError("\n".join(errors))

@@ -4,6 +4,8 @@
         [--synthetic-size N]] [--cfg FILE | --defaults] [--max-steps N] \
         [--device cpu] [--profile-dir DIR --profile-steps START:STOP] \
         [KEY VALUE ...]
+    torchrun --nproc_per_node N -m centerpose_tpu_torch.tools.train \
+        --multihost [--dist-backend gloo|nccl] ...
 
 Without ``--cfg`` the config is the flagship's (dla_34 @512, bfloat16,
 ``pallas_full``), built in code; ``--defaults`` starts from the config
@@ -30,8 +32,17 @@ to ``<output_dir>/<exp_id>``, where an ``output_dir`` of ``output`` (the
 default, the JAX package's) becomes ``port_output``: by default
 ``port_output/default``.
 
-Not ported: ``--multihost`` (data-parallel training, ROADMAP queue 1,
-item 7).
+``--multihost``: data-parallel training, one process per device, as
+torchrun starts them (``parallel/mesh.init_distributed`` reads its
+environment; ``--dist-backend``: nccl for CUDA, gloo for the CPU unless
+named).  ``--device cuda`` then means ``cuda:LOCAL_RANK``; a device with
+an index is taken as given.  ``train.batch_size`` is the global batch:
+each rank loads its shard of every batch (``batch_size // world``; the
+global batch must divide by the world size) and of the val split, and
+the Trainer reduces BatchNorm, the loss and the gradient over the ranks.
+Rank 0 alone logs, writes the checkpoints and the debug renders and runs
+the AP pass, while the others wait at a barrier; a resume loads
+``model_last`` on every rank.  Logged images/s count the global batch.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from centerpose_tpu_torch.data.synthetic import (SyntheticEvalDataset,
                                                  SyntheticPoseDataset)
 from centerpose_tpu_torch.eval.harness import evaluate_detector
 from centerpose_tpu_torch.inference.detector import Detector
+from centerpose_tpu_torch.parallel import mesh
 from centerpose_tpu_torch.tools.evaluate import (device_name, no_tf32,
                                                  run_config, run_dir)
 from centerpose_tpu_torch.train.checkpoints import (ckpt_meta,
@@ -78,7 +90,10 @@ def parse_args(argv=None):
                    help="hard synthetic distribution (crowding, occlusion, "
                         "small persons)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process data-parallel training (not ported)")
+                   help="data-parallel training over torchrun's processes")
+    p.add_argument("--dist-backend", type=str, default=None,
+                   help="process group backend of --multihost (default: "
+                        "nccl for CUDA, gloo for the CPU)")
     p.add_argument("--max-steps", type=int, default=0,
                    help="optional hard cap on the steps of this run")
     p.add_argument("--profile-dir", type=str, default="",
@@ -91,9 +106,10 @@ def parse_args(argv=None):
 
 
 def _train_epoch(trainer, batches, tick, steps_before: int,
-                 max_steps: int):
-    """The steps of one epoch over ``batches`` (device batches); returns
-    (the epoch's stats, steps run, the loss of its first step).  Loss stats
+                 max_steps: int, world: int = 1):
+    """The steps of one epoch over ``batches`` (device batches, this
+    rank's shards of the global batches of ``world`` ranks); returns (the
+    epoch's stats, steps run, the loss of its first step).  Loss stats
     are read back (a sync) at the epoch's first step and every 20th."""
     meters: Dict[str, AverageMeter] = {}
     first_loss = None
@@ -109,7 +125,7 @@ def _train_epoch(trainer, batches, tick, steps_before: int,
         tick(steps_before + steps)
         stats = trainer.train_step(b)
         steps += 1
-        n_seen += len(b["input"])
+        n_seen += len(b["input"]) * world
         if steps == 1 or (steps_before + steps) % 20 == 0:
             host = {k: float(v) for k, v in stats.items()}
             first_loss = host["loss"] if first_loss is None else first_loss
@@ -125,11 +141,13 @@ def _train_epoch(trainer, batches, tick, steps_before: int,
              "data_wait_frac": data_wait / dt}, steps, first_loss)
 
 
-def _val_loss(trainer, val_ds, cfg, device):
-    """The mean loss stats of ``eval_step`` over the val split, and its
-    first batch (for the debug renders)."""
-    loader = DataLoader(val_ds, cfg, batch_size=cfg.train.batch_size,
-                        is_train=False, num_workers=0, seed=0)
+def _val_loss(trainer, val_ds, cfg, device, rank: int = 0, world: int = 1):
+    """The mean loss stats of ``eval_step`` over the val split (this
+    rank's shard of it; the stats are the global batches'), and its first
+    batch (for the debug renders)."""
+    loader = DataLoader(val_ds, cfg, batch_size=cfg.train.batch_size // world,
+                        is_train=False, num_workers=0, seed=0,
+                        shard_id=rank, num_shards=world)
     meters: Dict[str, AverageMeter] = {}
     first = None
     for b in prefetch_to_device(loader.epoch(0), device):
@@ -139,18 +157,41 @@ def _val_loss(trainer, val_ds, cfg, device):
     return {k: m.avg for k, m in meters.items()}, first
 
 
+def _multihost_device(name: str) -> torch.device:
+    """``--device`` under ``--multihost``: a bare ``cuda`` is this rank's
+    card, ``cuda:LOCAL_RANK``; anything else as given."""
+    if name == "cuda":
+        name = f"cuda:{mesh.local_rank()}"
+    return resolve_device(name)
+
+
 def main(argv=None) -> Dict:
     """Train; returns a summary for callers: the ``trainer``, ``log_dir``,
     ``start_epoch``, the per-epoch ``epochs`` stats, ``first_loss`` (the
     loss of this run's first step) and, after a resume, ``restored`` (a
-    host copy of the state as restored)."""
+    host copy of the state as restored).  Under ``--multihost`` it joins
+    the default process group first and leaves it at the end."""
     args = parse_args(argv)
-    if args.multihost:
-        raise SystemExit("--multihost is not ported: data-parallel training "
-                         "is ROADMAP queue 1, item 7")
+    if not args.multihost:
+        return _train(args, resolve_device(args.device))
+    device = _multihost_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    mesh.init_distributed(backend=args.dist_backend, device=device)
+    try:
+        return _train(args, device, torch.distributed.group.WORLD)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _train(args, device: torch.device, group=None) -> Dict:
+    """``main`` on ``device``, data-parallel over ``group`` where given."""
     no_tf32()
     cfg = run_config(args.cfg, args.opts, args.defaults)
-    device = resolve_device(args.device)
+    rank, world = mesh.process_index(), mesh.process_count()
+    if cfg.train.batch_size % world:
+        raise ValueError(f"train.batch_size {cfg.train.batch_size} does not "
+                         f"divide by the world size {world}")
     if args.synthetic:
         train_ds = SyntheticPoseDataset(args.synthetic_size, seed=1,
                                         hard=args.hard)
@@ -160,16 +201,23 @@ def main(argv=None) -> Dict:
     else:
         train_ds = COCOHP(cfg, "train")
         val_ds = ap_dataset = COCOHP(cfg, "val")  # AP on image paths
-    logger = Logger(cfg, run_dir(cfg))
+    logger = Logger(cfg, run_dir(cfg), rank)
     logger.write(f"device: {device_name(str(device))}")
+    if group is not None:
+        logger.write(f"data-parallel: {world} ranks "
+                     f"({torch.distributed.get_backend(group)}), "
+                     f"{cfg.train.batch_size // world} images per rank")
     logger.write(f"train {len(train_ds)} images, val {len(val_ds)} images")
 
-    train_loader = DataLoader(train_ds, cfg, batch_size=cfg.train.batch_size,
+    train_loader = DataLoader(train_ds, cfg,
+                              batch_size=cfg.train.batch_size // world,
                               is_train=True,
                               num_workers=cfg.train.num_workers,
-                              seed=cfg.train.seed)
+                              seed=cfg.train.seed, shard_id=rank,
+                              num_shards=world)
     steps_per_epoch = max(1, train_loader.steps_per_epoch())
-    trainer = Trainer(cfg, device=device, steps_per_epoch=steps_per_epoch)
+    trainer = Trainer(cfg, device=device, steps_per_epoch=steps_per_epoch,
+                      group=group)
     n_params = sum(p.numel() for p in trainer.model.parameters())
     logger.write(f"model {cfg.model.name}: {n_params / 1e6:.2f}M params")
 
@@ -183,10 +231,10 @@ def main(argv=None) -> Dict:
         restored = to_host(trainer.state())
         logger.write(f"resumed from {last_path} at epoch {start_epoch}")
 
-    # the AP pass's detector has its own model: the trainer's float32
-    # master weights are copied into it (cast to the compute dtype) before
-    # each pass and never cast in place
-    ap_detector = Detector(cfg, device=device)
+    # the AP pass's detector (rank 0's) has its own model: the trainer's
+    # float32 master weights are copied into it (cast to the compute
+    # dtype) before each pass and never cast in place
+    ap_detector = Detector(cfg, device=device) if rank == 0 else None
 
     def run_ap_eval() -> Dict[str, float]:
         ap_detector.model.load_state_dict(trainer.model.state_dict())
@@ -205,6 +253,11 @@ def main(argv=None) -> Dict:
         stats["eval_wall_s"] = wall
         return stats
 
+    def save(name: str, epoch: int) -> None:
+        if rank == 0:
+            save_checkpoint(os.path.join(logger.log_dir, name), trainer,
+                            epoch, meta=meta)
+
     prof_start, prof_stop = (int(v) for v in args.profile_steps.split(":"))
     best_metric = -float("inf")
     total_steps = 0
@@ -212,48 +265,52 @@ def main(argv=None) -> Dict:
     epochs: List[Dict[str, float]] = []
     meta = ckpt_meta(cfg)
     try:
-        window = step_trace_window(args.profile_dir, prof_start, prof_stop)
+        window = step_trace_window(args.profile_dir if rank == 0 else "",
+                                   prof_start, prof_stop)
         with window as tick:
             for epoch in range(start_epoch + 1, cfg.train.epochs + 1):
                 stats, steps, loss = _train_epoch(
                     trainer, prefetch_to_device(train_loader.epoch(epoch),
                                                 device),
-                    tick, total_steps, args.max_steps)
+                    tick, total_steps, args.max_steps, world)
                 total_steps += steps
                 first_loss = loss if first_loss is None else first_loss
                 logger.log_stats("train", epoch, trainer.step, stats)
                 epochs.append({"epoch": epoch, **stats})
-                save_checkpoint(last_path, trainer, epoch, meta=meta)
+                save("model_last", epoch)
                 if cfg.train.save_all:
-                    save_checkpoint(os.path.join(logger.log_dir,
-                                                 f"model_{epoch}"),
-                                    trainer, epoch, meta=meta)
+                    save(f"model_{epoch}", epoch)
                 if (cfg.train.val_intervals > 0
                         and epoch % cfg.train.val_intervals == 0):
                     val_stats, debug_batch = _val_loss(trainer, val_ds, cfg,
-                                                       device)
-                    if cfg.debug > 0 and debug_batch is not None:
+                                                       device, rank, world)
+                    if (cfg.debug > 0 and debug_batch is not None
+                            and rank == 0):
                         render_train_debug(
                             trainer.model, debug_batch, cfg,
                             os.path.join(logger.log_dir, "debug",
                                          f"epoch_{epoch}"))
                     logger.log_stats("val", epoch, trainer.step, val_stats)
-                    ap_stats = run_ap_eval()
-                    logger.log_stats("val_ap", epoch, trainer.step, ap_stats)
-                    metric = epochs[-1]["AP"] = ap_stats.get("AP", -1.0)
-                    if metric > best_metric:
-                        best_metric = metric
-                        save_checkpoint(os.path.join(logger.log_dir,
-                                                     "model_best"),
-                                        trainer, epoch, meta=meta)
-                        logger.write(f"new best (val AP {metric:.4f}) at "
-                                     f"epoch {epoch}")
+                    if rank == 0:
+                        ap_stats = run_ap_eval()
+                        logger.log_stats("val_ap", epoch, trainer.step,
+                                         ap_stats)
+                        metric = epochs[-1]["AP"] = ap_stats.get("AP", -1.0)
+                        if metric > best_metric:
+                            best_metric = metric
+                            save("model_best", epoch)
+                            logger.write(f"new best (val AP {metric:.4f}) "
+                                         f"at epoch {epoch}")
+                    if group is not None:
+                        torch.distributed.barrier(group)
                 if args.max_steps and total_steps >= args.max_steps:
                     logger.write(f"hit --max-steps={args.max_steps}, stopping")
                     break
     finally:
         train_loader.close()
     wait_for_saves()  # the last checkpoint lands before the run ends
+    if group is not None:
+        torch.distributed.barrier(group)  # ... before any rank's run ends
     logger.write("done")
     logger.close()
     return {"trainer": trainer, "log_dir": logger.log_dir,

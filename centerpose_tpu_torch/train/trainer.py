@@ -1,6 +1,6 @@
 """Training step, optimizer and train state.
 
-Counterpart of ``centerpose_tpu/train/trainer.py`` on one device:
+Counterpart of ``centerpose_tpu/train/trainer.py``:
 
 - ``unpack_batch``: the device-side decode of the compact wire (uint8
   image -> /255 -> colour-aug replay from the 6 coefficients -> normalise;
@@ -22,13 +22,16 @@ Counterpart of ``centerpose_tpu/train/trainer.py`` on one device:
   returns them; the parameters feeding only those get no gradient and
   keep no optimizer state, where optax's zero gradient leaves them as
   they were too) and ``eval_step`` (``make_eval_step``: running
-  statistics, no update).
+  statistics, no update); with a process ``group``, data-parallel over
+  its ranks (``parallel/mesh.py``: DDP, BatchNorm and the loss over the
+  global batch), each rank holding a shard of the batch.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Iterable, Mapping, Optional
 
 import numpy as np
@@ -38,6 +41,8 @@ from centerpose_tpu_torch.losses import multi_pose_loss
 from centerpose_tpu_torch.models.common import (set_compute_dtype,
                                                 to_channels_last)
 from centerpose_tpu_torch.models.factory import create_model, model_dtype
+from centerpose_tpu_torch.parallel.mesh import (data_parallel, group_size,
+                                                sync_batch_norm)
 from centerpose_tpu_torch.utils.platform import resolve_device
 from centerpose_tpu_torch.weights import load_state_dict
 
@@ -127,6 +132,10 @@ class Optimizer:
         self.updates = 0  # applied updates: the schedule's position
         self.mini_step = 0  # micro-batches accumulated since the last one
 
+    def updates_next(self) -> bool:
+        """Whether the next ``step()`` applies an update."""
+        return self.mini_step + 1 >= self.every_k
+
     def step(self) -> bool:
         self.mini_step += 1
         if self.mini_step < self.every_k:
@@ -178,11 +187,20 @@ class Trainer:
     RNG (the process's RNG is left as it was).  ``step`` counts
     ``train_step`` calls; ``state()`` and ``load_state()`` carry the whole
     train state (step, parameters, BatchNorm statistics, optimizer and
-    schedule) for checkpoints (``train/checkpoints.py``)."""
+    schedule) for checkpoints (``train/checkpoints.py``).
+
+    ``group``: a ``torch.distributed`` process group (data parallelism
+    over its ranks, one device each, every rank feeding its shard of the
+    global batch) or None.  ``model`` stays the module itself (its state
+    names as in one process); ``ddp`` wraps it
+    (``parallel/mesh.data_parallel``) and runs the train steps, with
+    BatchNorm synchronised and the loss on global normalizers where the
+    group has more than one rank.  The optimizer's state is laid out as in
+    one process, so either loads the other's checkpoints."""
 
     def __init__(self, cfg, state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  device: str | torch.device = "cuda",
-                 steps_per_epoch: int = 1000):
+                 steps_per_epoch: int = 1000, group=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         with torch.random.fork_rng(devices=[]):
@@ -195,6 +213,12 @@ class Trainer:
         self.optimizer = Optimizer(self.model.parameters(), cfg,
                                    steps_per_epoch)
         self.step = 0
+        self.ddp = None
+        if group is not None:
+            sync_batch_norm(self.model, group)
+            self.ddp = data_parallel(self.model, self.device, group)
+        # the loss's group: None in one process or a group of one
+        self._loss_group = group if group_size(group) > 1 else None
 
     def state(self) -> dict:
         """The train state as live tensors: ``step``, ``model`` (the float32
@@ -219,25 +243,35 @@ class Trainer:
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
 
-    def _loss(self, batch: Mapping[str, np.ndarray]):
+    def _loss(self, batch: Mapping[str, np.ndarray], net=None):
         b = unpack_batch(batch_to_device(batch, self.device), self.cfg)
-        outputs = self.model(b["input"])
-        return multi_pose_loss(outputs, b, self.cfg)
+        outputs = (net or self.model)(b["input"])
+        return multi_pose_loss(outputs, b, self.cfg, self._loss_group)
 
-    def backward(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    def backward(self, batch: Mapping[str, np.ndarray],
+                 sync: bool = True) -> Dict[str, torch.Tensor]:
         """Forward in train mode (BatchNorm statistics advance), loss and
-        backward on a stacked batch: the gradients are added to ``.grad``.
-        Returns the loss stats as detached device scalars."""
+        backward on a stacked batch: the gradients are added to ``.grad``
+        (with a group, all-reduced to the ranks' average unless ``sync``
+        is False: then each rank keeps its own sum, ``no_sync``).  Returns
+        the loss stats as detached device scalars."""
         self.model.train()
-        loss, stats = self._loss(batch)
-        loss.backward()
+        if self.ddp is None:
+            loss, stats = self._loss(batch)
+            loss.backward()
+        else:
+            with (contextlib.nullcontext() if sync else self.ddp.no_sync()):
+                loss, stats = self._loss(batch, self.ddp)
+                loss.backward()
         return {k: v.detach() for k, v in stats.items()}
 
     def train_step(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One step on a stacked batch: ``backward``, then the optimizer (an
-        update every ``grad_accum`` calls).  Returns the loss stats as
+        update every ``grad_accum`` calls; with a group, the micro-batches
+        before an update leave their gradients unsynchronised, and the
+        update's all-reduce averages their sum).  Returns the loss stats as
         detached device scalars (read them with ``float``)."""
-        stats = self.backward(batch)
+        stats = self.backward(batch, sync=self.optimizer.updates_next())
         self.optimizer.step()
         self.step += 1
         return stats
@@ -245,7 +279,8 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Loss stats in eval mode (running BatchNorm statistics, the
-        inference DCN path); the state is left as it was."""
+        inference DCN path; with a group, the global batch's loss, as in
+        ``train_step``); the state is left as it was."""
         self.model.eval()
         try:
             _, stats = self._loss(batch)

@@ -2,7 +2,8 @@
 
 Writes the full config once (``opt_<time>.txt``), timestamped ``log.txt``
 lines per epoch and the scalar history as JSON lines (``scalars.jsonl``);
-TensorBoard event files too where ``torch.utils.tensorboard`` imports.
+TensorBoard event files too where ``torch.utils.tensorboard`` imports;
+in data-parallel training, rank 0 alone.
 """
 
 from __future__ import annotations
@@ -37,17 +38,24 @@ class AverageMeter:
 
 class Logger:
     """Logs of one run under ``log_dir`` (default
-    ``<cfg.output_dir>/<cfg.exp_id>``)."""
+    ``<cfg.output_dir>/<cfg.exp_id>``).  In data-parallel training only
+    rank 0 writes: a Logger of another ``rank`` writes no file and prints
+    its lines prefixed ``[rank r]`` (its ``log_dir`` still names the run's
+    directory)."""
 
-    def __init__(self, cfg, log_dir: Optional[str] = None):
+    def __init__(self, cfg, log_dir: Optional[str] = None, rank: int = 0):
         self.log_dir = log_dir or os.path.join(cfg.output_dir, cfg.exp_id)
+        self.rank = rank
+        self.active = rank == 0
+        self._tb = None
+        if not self.active:
+            return
         os.makedirs(self.log_dir, exist_ok=True)
         ts = time.strftime("%Y-%m-%d-%H-%M")
         with open(os.path.join(self.log_dir, f"opt_{ts}.txt"), "w") as f:
             json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
         self._log = open(os.path.join(self.log_dir, "log.txt"), "a")
         self._scalars = open(os.path.join(self.log_dir, "scalars.jsonl"), "a")
-        self._tb = None
         try:  # optional
             from torch.utils.tensorboard import SummaryWriter
 
@@ -56,12 +64,17 @@ class Logger:
             pass
 
     def write(self, txt: str):
+        if not self.active:
+            print(f"[rank {self.rank}] {txt}", flush=True)
+            return
         ts = time.strftime("%Y-%m-%d %H:%M:%S")
         self._log.write(f"{ts} | {txt}\n")
         self._log.flush()
         print(txt, flush=True)
 
     def scalar_summary(self, tag: str, value: float, step: int):
+        if not self.active:
+            return
         self._scalars.write(json.dumps(
             {"tag": tag, "value": float(value), "step": int(step)}) + "\n")
         self._scalars.flush()
@@ -76,6 +89,8 @@ class Logger:
             self.scalar_summary(f"{prefix}/{k}", float(v), step)
 
     def close(self):
+        if not self.active:
+            return
         self._log.close()
         self._scalars.close()
         if self._tb is not None:

@@ -130,6 +130,23 @@ took:
    (ms per step, images/s), 10 steps on one fixed batch whose loss must
    fall, and no DCN kernel launched.
 
+12b. data-parallel training, a main path (``parallel/mesh.py``): the DDP
+   ``Trainer`` at world size 1 on NCCL, 2 steps at batch 8 from the
+   snapshot, its parameters and BatchNorm buffers bit-equal to the plain
+   Trainer's on the same batches (cuDNN deterministic in both), ms per
+   step of each; two ranks on the one card over gloo (NCCL refuses two
+   ranks on one device; gloo all-reduces CUDA tensors through the host,
+   so their speed is shared-device, never scaling), 4 images each
+   (``python3 chip_smoke.py --dp-rank R ...``, a rank's own run): one f32
+   step (TF32 off) and one bf16 step against the one-process Trainer on
+   the same 8 images (the global loss, every all-reduced gradient, the
+   BatchNorm statistics; TOL_TRAIN_* and TOL_TRAIN_BF16), then 2 SGD
+   steps after which the ranks' parameters are bit-identical, K2 and the
+   backward launched 16 times per step on each rank; ``tools/train.py
+   --multihost`` on the two ranks (1 epoch of 4 steps, validation and AP
+   on 32 images on rank 0): rank 0's files alone, finite losses, K1 in
+   the AP pass, global images/s and ``data_wait_frac`` (shared-device);
+   ``tools/bench_scaling.py --nprocs 1`` with the card line;
 14. bench suite: ``tools/bench_suite`` (dla_34 ``pallas_full/bfloat16``
    infer at batch 1 and 8 and train at batch 8; res_18 ``bfloat16`` infer
    at batch 1 and 8) and ``tools/bench_eval`` (the mobilenetv3 video row
@@ -138,10 +155,13 @@ took:
 
 ``python3 chip_smoke.py --only training`` runs the build, the training
 main path and its trace alone, ``--only serving`` the build and the
-serving main path (to compare two trees in one call).
+serving main path, ``--only data-parallel`` the build and the
+data-parallel phase (to compare two trees in one call).
 
 Then it prints the kernels' JSON line (K1's ``launches``: the serving,
-demo and export phases' together), the card's name and power limit, and
+demo and export phases' together; K2's and the backward's: the training
+main path's and the two data-parallel ranks'), the card's name and power
+limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 exit code is then not 0.  Without a CUDA device, or outside the
 repository, it prints no result and exits with 1.  It writes nothing but
@@ -261,6 +281,24 @@ CLI_STEPS, CLI_EPOCHS, CLI_WORKERS, CLI_AP_LIMIT = 8, 2, 8, 32
 # The native encoder against the numpy path: the reference's own tolerance
 # (tests/test_native.py), over this many examples.
 NATIVE_EXAMPLES, TOL_NATIVE = 64, 1e-5
+# The data-parallel phase (dla_34 @512 from the snapshot, global batch
+# TRAIN_BATCH): the DDP Trainer at world size 1 on NCCL against the plain
+# Trainer, bit for bit over DP_STEPS steps (cuDNN held to deterministic
+# algorithms in both); two ranks on the one card over gloo (NCCL refuses
+# two ranks on one device), each with half of the batch: one f32 and one
+# bf16 step against the one-process Trainer on the same 8 images at the
+# training model check's tolerances (the ranks' halves differ from the
+# whole batch in the order of the sums, as the kernels' order does; where
+# the one-process step fed the batch's halves swapped, a control of that
+# order alone, lies further, at twice the control's distance: on an H100
+# its worst f32 tensor read 8.95e-4 and its bf16 gradients 4.81e-2 over
+# the model), then
+# DP_STEPS SGD steps after which the ranks' parameters are bit-identical;
+# the CLI on the two ranks, 1 epoch of DP_CLI_STEPS steps with validation
+# and AP on CLI_AP_LIMIT images; bench_scaling at world size 1.  A rank
+# that has not ended after DP_TIMEOUT seconds fails the phase.
+DP_STEPS, DP_CLI_STEPS, DP_CLI_WORKERS, DP_TIMEOUT = 2, 4, 4, 600
+DP_BENCH_ITERS = 5
 # The demo phase: 32 synthetic 640x480 frames through the demo's batched
 # stream at batch 8, each frame's rows held against Detector.run on the
 # same frame (batch 1: K1 and cuDNN may take other plans, so the bf16 rows
@@ -2119,6 +2157,393 @@ def training_cli(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def _dp_state(trainer) -> dict:
+    """Host copies of a trainer's parameters and BatchNorm buffers."""
+    return {n: t.detach().cpu().clone() for n, t in
+            [*trainer.model.named_parameters(),
+             *trainer.model.named_buffers()]}
+
+
+def _dp_world_one(state_dict, batches) -> None:
+    """The DDP Trainer at world size 1 on NCCL against the plain Trainer:
+    DP_STEPS steps on the same batches, parameters and BatchNorm buffers
+    bit-equal; ms per step of each (after a warm-up step of another
+    Trainer)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from centerpose_tpu_torch.parallel.mesh import init_distributed
+    from centerpose_tpu_torch.train.trainer import Trainer
+
+    cfg = train_cfg()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # warm-up: the deterministic algorithms' first use at these shapes
+        Trainer(cfg, state_dict, device="cuda").train_step(batches[0])
+        with tempfile.TemporaryDirectory(prefix="cp_dp1_") as tmp:
+            init_distributed(f"file://{tmp}/rdv", 1, 0, backend="nccl",
+                             device="cuda", timeout=DP_TIMEOUT)
+            try:
+                runs = {}
+                for name, group in (("plain", None),
+                                    ("DDP", dist.group.WORLD)):
+                    trainer = Trainer(cfg, state_dict, device="cuda",
+                                      group=group)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for b in batches:
+                        trainer.train_step(b)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+                    runs[name] = (ms, _dp_state(trainer))
+                    del trainer
+            finally:
+                dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    (ms_p, plain), (ms_d, ddp) = runs["plain"], runs["DDP"]
+    differ = [n for n in plain if not torch.equal(plain[n], ddp[n])]
+    check(not differ, f"world-1 DDP differs from the plain Trainer at "
+          f"{len(differ)} tensors, first {differ[:3]}")
+    say(f"  world size 1 (nccl), batch {TRAIN_BATCH} bf16, {len(batches)} "
+        f"steps: DDP {ms_d:.2f} ms per step, plain {ms_p:.2f} ms per step "
+        f"(host clock, synchronised, cuDNN deterministic); {len(plain)} "
+        "parameters and buffers bit-equal")
+
+
+def dp_rank(rank: int, world: int, init: str, out: str) -> None:
+    """One rank of the data-parallel phase's two-rank run on cuda:0 over
+    gloo: its half of the 8 images of seed 31 through one f32 step (TF32
+    off) and one bf16 step (backward only; the all-reduced gradients, the
+    BatchNorm statistics and the loss), then DP_STEPS bf16 SGD steps on
+    seeds 32, 33; writes them with its launch counts to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from centerpose_tpu_torch.config import update_config
+    from centerpose_tpu_torch.ops import dcn_cuda as dc
+    from centerpose_tpu_torch.parallel.mesh import init_distributed
+    from centerpose_tpu_torch.train.trainer import Trainer
+    from centerpose_tpu_torch.weights import state_dict_from_npz
+
+    torch.cuda.set_device(0)
+    init_distributed(init, world, rank, backend="gloo", device="cuda:0",
+                     timeout=DP_TIMEOUT)
+    try:
+        group = dist.group.WORLD
+        state_dict = state_dict_from_npz(str(NPZ))
+        n = TRAIN_BATCH // world
+        half = slice(rank * n, (rank + 1) * n)
+
+        def mine(cfg, seed):
+            return {k: v[half] for k, v in
+                    train_batch(cfg, seed, TRAIN_BATCH).items()}
+
+        res = {"steps": {}}
+        dc.reset_launch_counts()
+        for dtype in ("float32", "bfloat16"):
+            trainer = Trainer(train_cfg(dtype), state_dict, device="cuda:0",
+                              group=group)
+            stats = trainer.backward(mine(trainer.cfg, 31))
+            torch.cuda.synchronize()
+            grads = {n: None if p.grad is None else p.grad.detach().cpu()
+                     for n, p in trainer.model.named_parameters()}
+            bstats = {n: t.detach().cpu()
+                      for n, t in trainer.model.state_dict().items()
+                      if n.endswith(("running_mean", "running_var"))}
+            res["steps"][dtype] = (float(stats["loss"]), grads, bstats)
+            del trainer
+        cfg = update_config(train_cfg(), {"train": {"optimizer": "sgd"}})
+        trainer = Trainer(cfg, state_dict, device="cuda:0", group=group)
+        for seed in range(32, 32 + DP_STEPS):
+            trainer.train_step(mine(cfg, seed))
+        torch.cuda.synchronize()
+        res["state"] = _dp_state(trainer)
+        res["steps_run"] = 2 + DP_STEPS
+        res["launches"] = {
+            "dcn_v2": dict(dc.dcn_v2.launches_by_site),
+            "dcn_v2_backward": dict(dc.dcn_v2_backward.launches_by_site),
+            "k1": dc.dcn_v2_fused.launches}
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _start_ranks(cmds, env_of):
+    """Start one process per command (``env_of(rank)`` its environment),
+    output to a pipe."""
+    import os
+
+    return [subprocess.Popen(cmd, cwd=str(ROOT), env={**os.environ,
+                                                      **env_of(r)},
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for r, cmd in enumerate(cmds)]
+
+
+def _wait_ranks(procs, what: str) -> list:
+    """Each process's output once all have ended; fails the phase when one
+    failed or outlived DP_TIMEOUT (then all are killed)."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        outs.append(f"timed out after {DP_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    check(not failed, f"{what}: rank(s) {failed} failed\n"
+          + "\n".join(o[-3000:] for o in outs))
+    return outs
+
+
+def _dp_two_ranks(state_dict, tmp: Path) -> dict:
+    """The two-rank step on one card (gloo) against the one-process
+    Trainer; returns the ranks' launch counts by (kernel, site), summed."""
+    import numpy as np
+    import torch
+
+    from centerpose_tpu_torch.train.trainer import Trainer
+
+    def one_process(dtype, order):
+        cfg = train_cfg(dtype)
+        batch = train_batch(cfg, 31, TRAIN_BATCH)
+        trainer = Trainer(cfg, state_dict, device="cuda")
+        stats = trainer.backward({k: v[order] for k, v in batch.items()})
+        torch.cuda.synchronize()
+        return (float(stats["loss"]),
+                {n: None if p.grad is None else p.grad.detach().cpu()
+                 for n, p in trainer.model.named_parameters()},
+                {n: t.detach().cpu()
+                 for n, t in trainer.model.state_dict().items()
+                 if n.endswith(("running_mean", "running_var"))})
+
+    # the one-process step, and as a control of its summation-order noise
+    # the same step with the batch's halves swapped
+    half = TRAIN_BATCH // 2
+    order = np.arange(TRAIN_BATCH)
+    ref = {dtype: one_process(dtype, order)
+           for dtype in ("float32", "bfloat16")}
+    floor = {dtype: _step_gaps(one_process(dtype, np.roll(order, half)),
+                               ref[dtype])
+             for dtype in ("float32", "bfloat16")}
+    torch.cuda.empty_cache()
+    outs = [str(tmp / f"rank{r}.pt") for r in range(2)]
+    init = f"file://{tmp}/rdv2"
+    t0 = time.perf_counter()
+    _wait_ranks(_start_ranks(
+        [[sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", str(r),
+          "--dp-world", "2", "--dp-init", init, "--dp-out", outs[r]]
+         for r in range(2)], lambda r: {}), "two-rank step")
+    t_ranks = time.perf_counter() - t0
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+
+    for dtype in ("float32", "bfloat16"):
+        a, b = (r["steps"][dtype] for r in ranks)
+        check(a[0] == b[0] and all(
+            (a[1][n] is None and b[1][n] is None) or torch.equal(a[1][n],
+                                                                 b[1][n])
+            for n in a[1]), f"{dtype}: the ranks' all-reduced gradients "
+              "or global loss differ")
+        loss_rel, stat_err, rows, total = _step_gaps(a, ref[dtype])
+        median = float(np.median([r[0] for r in rows]))
+        f_rows, f_total = floor[dtype][2], floor[dtype][3]
+        f_median = float(np.median([r[0] for r in f_rows]))
+        say(f"  two ranks x {half} (gloo, one card) against one process x "
+            f"{TRAIN_BATCH}, {dtype} step: loss {a[0]:.6f} / "
+            f"{ref[dtype][0]:.6f} (rel {loss_rel:.2e}); BatchNorm "
+            f"statistics max rel err {stat_err:.2e}; gradients of "
+            f"{len(rows)} tensors: L2 rel err of all {total:.2e}, worst "
+            f"{rows[0][0]:.2e} ({rows[0][2]}), median {median:.2e}; one "
+            f"process with the halves swapped: loss {floor[dtype][0]:.2e}, "
+            f"statistics {floor[dtype][1]:.2e}, gradients all "
+            f"{f_total:.2e}, worst {f_rows[0][0]:.2e} ({f_rows[0][2]}), "
+            f"median {f_median:.2e}")
+        if dtype == "float32":
+            # a tensor whose gradient sums cancelling terms (a BatchNorm
+            # bias) may read above TOL_TRAIN_GRAD_L2 from the order of
+            # the sums alone: held to twice the control's worst there
+            worst_tol = max(TOL_TRAIN_GRAD_L2, 2 * f_rows[0][0])
+            check(loss_rel <= TOL_TRAIN_LOSS
+                  and stat_err <= TOL_TRAIN_STATS
+                  and total <= TOL_TRAIN_GRAD_L2
+                  and rows[0][0] <= worst_tol,
+                  f"two-rank f32 step: loss {loss_rel:.3e}, statistics "
+                  f"{stat_err:.3e}, gradients all {total:.3e}, worst "
+                  f"{rows[0]} (limit {worst_tol:.3e})")
+        else:
+            # the bf16 step's order noise alone (one bf16 rounding moved
+            # by a last bit of a statistic) may reach TOL_TRAIN_BF16: held
+            # to twice the control's there
+            tol = {"total": max(TOL_TRAIN_BF16["grad_l2"], 2 * f_total),
+                   "median": max(TOL_TRAIN_BF16["grad_l2"], 2 * f_median)}
+            check(loss_rel <= TOL_TRAIN_BF16["loss"]
+                  and stat_err <= TOL_TRAIN_BF16["stats"]
+                  and total <= tol["total"] and median <= tol["median"],
+                  f"two-rank bf16 step: loss {loss_rel:.3e}, statistics "
+                  f"{stat_err:.3e}, gradients all {total:.3e} median "
+                  f"{median:.3e} (limits {tol})")
+    s0, s1 = ranks[0]["state"], ranks[1]["state"]
+    differ = [n for n in s0 if not torch.equal(s0[n], s1[n])]
+    check(not differ, f"after {DP_STEPS} SGD steps the ranks differ at "
+          f"{len(differ)} tensors, first {differ[:3]}")
+    want = {(cin, cout, hw, hw): k for cin, cout, hw, k in SITES}
+    totals = {"dcn_v2": {}, "dcn_v2_backward": {}}
+    for r, res in enumerate(ranks):
+        steps = res["steps_run"]
+        for kernel in totals:
+            by_site = res["launches"][kernel]
+            check(by_site == {site: k * steps for site, k in want.items()},
+                  f"rank {r}: {kernel} launches by site {by_site} for "
+                  f"{steps} steps")
+            for site, v in by_site.items():
+                totals[kernel][site] = totals[kernel].get(site, 0) + v
+        check(res["launches"]["k1"] == 0, f"rank {r}: K1 launched in training")
+    say(f"  two ranks: {DP_STEPS} SGD steps, {len(s0)} parameters and "
+        f"buffers bit-identical on the ranks; K2 and backward launches per "
+        f"rank {sum(ranks[0]['launches']['dcn_v2'].values())} and "
+        f"{sum(ranks[0]['launches']['dcn_v2_backward'].values())} for "
+        f"{ranks[0]['steps_run']} steps (16 each per step); ranks' wall "
+        f"{t_ranks:.2f} s")
+    return totals
+
+
+# tools/train.py main() in a rank process, its launch counts and summary
+# written to the file named by argv[1]
+_DP_CLI = """
+import json, sys
+from centerpose_tpu_torch.ops import dcn_cuda as dc
+from centerpose_tpu_torch.tools import train
+run = train.main(sys.argv[2:])
+json.dump({"k1": dc.dcn_v2_fused.launches, "k2": dc.dcn_v2.launches,
+           "bwd": dc.dcn_v2_backward.launches, "steps": run["trainer"].step,
+           "epochs": run["epochs"]}, open(sys.argv[1], "w"))
+"""
+
+
+def _dp_cli(card: str, tmp: Path) -> None:
+    """tools/train.py --multihost on two ranks over gloo on cuda:0: the
+    files (rank 0's alone), finite losses, K2 and the backward at every
+    step, K1 in rank 0's AP pass; global images/s (shared device)."""
+    import numpy as np
+
+    from centerpose_tpu_torch.eval.harness import BUCKET_CAP
+    from centerpose_tpu_torch.tools.bench_scaling import _free_port
+
+    out = tmp / "cli"
+    argv = ["--multihost", "--dist-backend", "gloo", "--device", "cuda:0",
+            "--synthetic", "--hard", "--synthetic-size",
+            str(DP_CLI_STEPS * TRAIN_BATCH), "train.batch_size",
+            str(TRAIN_BATCH), "train.num_workers", str(DP_CLI_WORKERS),
+            "train.epochs", "1", "train.val_intervals", "1",
+            "train.val_ap_limit", str(CLI_AP_LIMIT), "output_dir", str(out),
+            "exp_id", "dp"]
+    port = str(_free_port())
+    results = [tmp / f"cli_rank{r}.json" for r in range(2)]
+    t0 = time.perf_counter()
+    _wait_ranks(_start_ranks(
+        [[sys.executable, "-c", _DP_CLI, str(results[r]), *argv]
+         for r in range(2)],
+        lambda r: {"RANK": str(r), "LOCAL_RANK": str(r), "WORLD_SIZE": "2",
+                   "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port}),
+        "tools/train.py --multihost")
+    wall = time.perf_counter() - t0
+    runs = [json.loads(p.read_text()) for p in results]
+    log_dir = out / "dp"
+    files = sorted(p.name for p in log_dir.iterdir())
+    # one config dump, and TensorBoard's events file where it imports
+    opt = [f for f in files if f.startswith("opt_")]
+    tb = [f for f in files if f.startswith("events.out.")]
+    check(len(opt) == 1 and len(tb) <= 1 and set(files) - {*opt, *tb} == {
+        "log.txt", "scalars.jsonl", "model_last", "model_last.meta.json",
+        "model_best", "model_best.meta.json"},
+          f"--multihost run directory holds {files}: rank 0's files only")
+    log = (log_dir / "log.txt").read_text()
+    check(log.count("| done") == 1 and log.count("train epoch 1") == 1,
+          "log.txt must hold one rank's lines")
+    scalars = [json.loads(line) for line in
+               (log_dir / "scalars.jsonl").read_text().splitlines()]
+    losses = [r["value"] for r in scalars if r["tag"] == "train/loss"]
+    check(len(losses) == 1 and all(np.isfinite(losses)),
+          f"--multihost train losses {losses}")
+    for r, run in enumerate(runs):
+        check(run["steps"] == DP_CLI_STEPS
+              and run["k2"] == 16 * DP_CLI_STEPS
+              and run["bwd"] == 16 * DP_CLI_STEPS,
+              f"--multihost rank {r}: {run['steps']} steps, K2 {run['k2']}, "
+              f"backward {run['bwd']}")
+    # K1 in each rank's share of the validation loss (eval mode, the
+    # tool's val split of max(32, n / 8) images), and in rank 0's AP pass
+    val_steps = max(32, DP_CLI_STEPS * TRAIN_BATCH // 8) // TRAIN_BATCH
+    ap_forwards = -(-CLI_AP_LIMIT // BUCKET_CAP)
+    check(runs[1]["k1"] == 16 * val_steps
+          and runs[0]["k1"] - runs[1]["k1"] >= 16 * ap_forwards,
+          f"--multihost K1 launches {runs[0]['k1']} / {runs[1]['k1']}: "
+          f"{16 * val_steps} each in the val loss, at least "
+          f"{16 * ap_forwards} more on rank 0 in the AP pass")
+    e = runs[0]["epochs"][0]
+    say(f"  tools/train.py --multihost, 2 ranks (gloo) sharing one card, "
+        f"global batch {TRAIN_BATCH}, {DP_CLI_STEPS} steps: "
+        f"{e['img_per_s']:.2f} global images/s shared-device (not "
+        f"scaling), data_wait_frac {e['data_wait_frac']:.4f}, loss "
+        f"{e['loss']:.4f}, val AP {e.get('AP', float('nan')):.4f}; K1 "
+        f"{runs[0]['k1']} / {runs[1]['k1']} on ranks 0 / 1; run wall "
+        f"{wall:.2f} s; {card}")
+
+
+def _dp_bench(card: str) -> None:
+    """tools/bench_scaling.py --nprocs 1 on the card (nccl)."""
+    import math
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "centerpose_tpu_torch.tools.bench_scaling",
+         "--nprocs", "1", "--per-gpu-batch", str(TRAIN_BATCH), "--iters",
+         str(DP_BENCH_ITERS)], cwd=str(ROOT), capture_output=True,
+        text=True, timeout=DP_TIMEOUT)
+    check(proc.returncode == 0, "bench_scaling failed:\n"
+          + proc.stdout[-3000:] + proc.stderr[-3000:])
+    rows = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+    check(len(rows) == 1 and rows[0].get("world_size") == 1
+          and rows[0]["backend"] == "nccl"
+          and math.isfinite(rows[0]["images_per_s"])
+          and rows[0]["images_per_s"] > 0, f"bench_scaling rows {rows}")
+    say(f"  bench_scaling --nprocs 1 (flagship, random weights, "
+        f"{DP_BENCH_ITERS} steps): {json.dumps(rows[0])}; {card}")
+
+
+def data_parallel(state_dict, card: str) -> dict:
+    """The data-parallel training main path (``parallel/mesh.py``): world
+    size 1 on NCCL, two ranks on the one card over gloo, the CLI on two
+    ranks, bench_scaling at world size 1.  Returns the two-rank step's
+    launch counts by (kernel, site)."""
+    import tempfile
+
+    cfg = train_cfg()
+    batches = [train_batch(cfg, 40 + i, TRAIN_BATCH) for i in range(DP_STEPS)]
+    t = [time.perf_counter()]
+    _dp_world_one(state_dict, batches)
+    t.append(time.perf_counter())
+    with tempfile.TemporaryDirectory(prefix="cp_dp_") as tmp:
+        launches = _dp_two_ranks(state_dict, Path(tmp))
+        t.append(time.perf_counter())
+        _dp_cli(card, Path(tmp))
+        t.append(time.perf_counter())
+    _dp_bench(card)
+    t.append(time.perf_counter())
+    say("  data-parallel parts, s: world size 1 {:.2f}, two-rank step "
+        "{:.2f}, --multihost {:.2f}, bench_scaling {:.2f}".format(
+            *(b - a for a, b in zip(t, t[1:]))))
+    return launches
+
+
 def best_checkpoint(cfg, path: Path) -> None:
     """The training CLI's ``model_best`` through ``tools/evaluate.
     load_detector`` on the card: the weights it restores are the file's,
@@ -2187,6 +2612,19 @@ def only_serving(card: str) -> int:
     return 0
 
 
+def only_data_parallel(card: str) -> int:
+    """``--only data-parallel``: the build and the data-parallel main path
+    alone (no result line)."""
+    from centerpose_tpu_torch.weights import state_dict_from_npz
+
+    phase("build CUDA library", build)
+    state_dict = state_dict_from_npz(str(NPZ))
+    phase("data-parallel training (main path)",
+          lambda: data_parallel(state_dict, card))
+    say(card)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2206,6 +2644,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of the data-parallel phase
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        dp_rank(int(args["--dp-rank"]), int(args["--dp-world"]),
+                args["--dp-init"], args["--dp-out"])
+        return 0
     t_all = time.perf_counter()
 
     card = phase("card", card_line)
@@ -2215,6 +2658,8 @@ def main() -> int:
         return only_training(card)
     if sys.argv[1:] == ["--only", "serving"]:
         return only_serving(card)
+    if sys.argv[1:] == ["--only", "data-parallel"]:
+        return only_data_parallel(card)
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     phase("build CUDA library", build)
     entries = phase("kernel check", kernel_check)
@@ -2246,6 +2691,8 @@ def main() -> int:
     phase("backbones (serving, main path)", lambda: backbones(ds, card))
     del ds
     phase("training CLI (main path)", lambda: training_cli(card))
+    dp_launches = phase("data-parallel training (main path)",
+                        lambda: data_parallel(state_dict, card))
     phase("backbones (training, main path)", lambda: backbone_training(card))
     t0 = time.perf_counter()
     phase("bench suite", lambda: bench_phase(card))
@@ -2258,9 +2705,11 @@ def main() -> int:
         entry["launches"] = (launches[site] + demo_launches[site]
                              + export_launches[site])
     for (kernel, site), entry in train_entries.items():
-        entry["launches"] = train_launches[kernel].get(site, 0)
-        check(entry["launches"] > 0,
+        check(train_launches[kernel].get(site, 0) > 0
+              and dp_launches[kernel].get(site, 0) > 0,
               f"{kernel} never launched at site {site}")
+        entry["launches"] = (train_launches[kernel][site]
+                             + dp_launches[kernel][site])
     kernels = list(entries.values()) + list(train_entries.values())
     say(f"[phase] total {time.perf_counter() - t_all:.2f} s")
     say(json.dumps({"kernels": kernels}))

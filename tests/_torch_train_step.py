@@ -190,21 +190,46 @@ def check_train_step(name: str, tmp_path) -> None:
     against optax's on the float64 gradients; where some parameter got no
     gradient, the stepped state through a checkpoint (no Adam state for
     it) and back, bit for bit; ``tmp_path`` takes it."""
-    jcfg = j_update(j_default(), _overrides(name))
-    tcfg = update_config(default_config(), _overrides(name))
-    variables = _variables(name, jcfg)
-    batch = _batch(jcfg, tcfg)
+    jcfg, tcfg, variables, batch = step_case(name)
     ref64 = _reference_step(jcfg, variables, batch, jnp.float64)
 
     trainer = Trainer(tcfg, port_state_dict(variables), device="cpu")
     stats = {k: float(v) for k, v in trainer.backward(batch).items()}
     live = dict(trainer.model.named_parameters())
     dead = [n for n, p in live.items() if p.grad is None]
-    grads = npz_arrays({n: (p.grad if p.grad is not None
-                            else torch.zeros_like(p))
-                        for n, p in live.items()}, ref64["grads"])
+    grads = {n: p.grad for n, p in live.items()}
     assert trainer.optimizer.step()  # one update, as the reference's
-    sd = trainer.model.state_dict()
+    check_step(jcfg, tcfg, variables, batch, ref64, stats, grads,
+               trainer.model.state_dict())
+
+    if dead:
+        path = str(tmp_path / "model_last")
+        ckpt.save_checkpoint(path, trainer, epoch=1,
+                             meta=ckpt.ckpt_meta(tcfg))
+        fresh = ckpt.restore_state(Trainer(tcfg, device="cpu"),
+                                   ckpt.load_checkpoint(path))
+        assert bit_equal(ckpt.to_host(fresh.state()),
+                         ckpt.to_host(trainer.state()))
+
+
+def step_case(name: str):
+    """(reference config, port config, seeded variables, batch) of
+    ``check_train_step``'s case for the factory name ``name``."""
+    jcfg = j_update(j_default(), _overrides(name))
+    tcfg = update_config(default_config(), _overrides(name))
+    variables = _variables(name, jcfg)
+    return jcfg, tcfg, variables, _batch(jcfg, tcfg)
+
+
+def check_step(jcfg, tcfg, variables, batch, ref64, stats, grads,
+               sd) -> None:
+    """``check_train_step``'s checks of one port step against the
+    reference's (``ref64``, its float64 step): the loss ``stats``, the
+    gradients ``grads`` (port parameter name -> tensor, None where no
+    gradient reached it) and the state dict ``sd`` after Adam's first
+    update."""
+    grads = npz_arrays({n: (g if g is not None else torch.zeros_like(sd[n]))
+                        for n, g in grads.items()}, ref64["grads"])
     assert stats.keys() == ref64["stats"].keys()
     gaps = _gaps(stats, grads, npz_arrays(sd, ref64["batch_stats"]), ref64)
     tol = dict(TOL)
@@ -242,15 +267,6 @@ def check_train_step(name: str, tmp_path) -> None:
         assert diff[resolved].max(initial=0.0) < 1e-6, k
         assert diff.max() <= 2 * lr * (1 + 1e-3), k
 
-    if dead:
-        path = str(tmp_path / "model_last")
-        ckpt.save_checkpoint(path, trainer, epoch=1,
-                             meta=ckpt.ckpt_meta(tcfg))
-        fresh = ckpt.restore_state(Trainer(tcfg, device="cpu"),
-                                   ckpt.load_checkpoint(path))
-        assert bit_equal(ckpt.to_host(fresh.state()),
-                         ckpt.to_host(trainer.state()))
-
 
 def unflatten(flat: dict) -> dict:
     """``_flat``'s "params:['a']['b']" keys back to a nested tree."""
@@ -269,10 +285,7 @@ def unflatten(flat: dict) -> dict:
 def port_and_reference_gaps(name: str):
     """``_gaps`` of the port's float32 step and of the reference's, each
     against the reference's float64 step."""
-    jcfg = j_update(j_default(), _overrides(name))
-    tcfg = update_config(default_config(), _overrides(name))
-    variables = _variables(name, jcfg)
-    batch = _batch(jcfg, tcfg)
+    jcfg, tcfg, variables, batch = step_case(name)
     ref64 = _reference_step(jcfg, variables, batch, jnp.float64)
     ref32 = _reference_step(jcfg, variables, batch, jnp.float32)
     trainer = Trainer(tcfg, port_state_dict(variables), device="cpu")

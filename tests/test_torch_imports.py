@@ -25,12 +25,14 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 # the demo, the debugger, the importer check, the export and the bench
-# tools import without cv2 too
+# tools, data parallelism and the scaling bench import without cv2 too
 assert {"centerpose_tpu_torch.utils.debugger", "centerpose_tpu_torch.tools.demo",
         "centerpose_tpu_torch.tools.check_importer",
         "centerpose_tpu_torch.tools.export",
         "centerpose_tpu_torch.tools.bench_suite",
-        "centerpose_tpu_torch.tools.bench_eval"} <= set(names)
+        "centerpose_tpu_torch.tools.bench_eval",
+        "centerpose_tpu_torch.parallel", "centerpose_tpu_torch.parallel.mesh",
+        "centerpose_tpu_torch.tools.bench_scaling"} <= set(names)
 import chip_smoke  # importing must not run main()
 from centerpose_tpu_torch.config import default_config, update_config
 from centerpose_tpu_torch.inference.detector import Detector

@@ -59,11 +59,14 @@ def test_cli_trains_saves_validates_and_resumes(tmp_path, monkeypatch):
     assert run2["trainer"].step == 4
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
-    """Data-parallel training (item 7) is refused; without ``--synthetic``
-    the CLI reads COCO files, and a tree without them is refused naming
-    the file it looked for."""
-    with pytest.raises(SystemExit, match="item 7"):
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """``--multihost`` outside torchrun's environment is refused (never
+    run quietly in one process: ``tests/test_torch_parallel_cli.py`` runs
+    it on two ranks); without ``--synthetic`` the CLI reads COCO files,
+    and a tree without them is refused naming the file it looked for."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="RANK"):
         train_cli.main(["--synthetic", "--multihost", "--device", "cpu"])
     with pytest.raises(FileNotFoundError,
                        match="person_keypoints_train2017.json"):
