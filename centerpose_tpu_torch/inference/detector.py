@@ -12,6 +12,11 @@ Everything up to the decoded [B, K, 40] rows runs on the device: the image
 is uploaded as uint8 once and resized and warped there (no cv2).  ``run``
 also takes an image file's path, decoded on the host with cv2
 (``data/coco.read_image``).
+
+With a ``mesh`` (``parallel/mesh.create_mesh_2d``), every rank of it holds
+the same frames and the forward runs spatially sharded: each rank its
+block of the batch and of the image rows (``parallel/spatial.py``), the
+heads gathered back on every rank, then the decode as in one process.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from centerpose_tpu_torch.ops.decode import multi_pose_decode
 from centerpose_tpu_torch.ops.image import (FLIP_IDX, get_affine_transform,
                                             resize_linear, warp_affine)
 from centerpose_tpu_torch.ops.soft_nms import soft_nms_39
+from centerpose_tpu_torch.parallel.mesh import Mesh2D, spatial_sharding
 from centerpose_tpu_torch.utils.platform import resolve_device
 from centerpose_tpu_torch.weights import load_state_dict
 
@@ -68,11 +74,13 @@ class ServingNet(nn.Module):
     (the flipped half built here), the forward, clamped sigmoid, decode at
     K = ``test.topk``.  It owns the model, and ``mean`` and ``std`` are
     buffers, so that an exported program (``tools/export.py``) holds them
-    with the weights."""
+    with the weights.  ``sharding``: a ``parallel/mesh.SpatialSharding``
+    whose forward runs the model on row shards, or None."""
 
-    def __init__(self, model: nn.Module, cfg: Config):
+    def __init__(self, model: nn.Module, cfg: Config, sharding=None):
         super().__init__()
         self.model = model
+        self.sharding = sharding
         self.register_buffer("mean", torch.tensor(cfg.dataset.mean,
                                                   dtype=torch.float32))
         self.register_buffer("std", torch.tensor(cfg.dataset.std,
@@ -86,7 +94,8 @@ class ServingNet(nn.Module):
             images = (images.float() / 255.0 - self.mean) / self.std
         if self.flip_test:
             images = torch.cat([images, images.flip(2)], dim=0)
-        out = self.model(images)
+        out = (self.model(images) if self.sharding is None
+               else self.sharding.forward(self.model, images))
         hm = sigmoid_clamped(out["hm"])
         hm_hp = sigmoid_clamped(out["hm_hp"]) if self.loss.hm_hp else None
         wh, hps = out["wh"], out["hps"]
@@ -111,10 +120,13 @@ class Detector:
 
     ``state_dict``: model weights (``weights.state_dict_from_npz``); None
     keeps the random initialisation, seeded with 0.  ``device``: the card
-    unless the caller asks for ``"cpu"``."""
+    unless the caller asks for ``"cpu"``.  ``mesh``: a (data, spatial)
+    mesh of the ranks serving together, each holding the same frames (the
+    forward is sharded over it), or None."""
 
     def __init__(self, cfg: Config, state_dict: Optional[dict] = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 mesh: Optional[Mesh2D] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         with torch.random.fork_rng(devices=[]):
@@ -124,7 +136,9 @@ class Detector:
             load_state_dict(model, state_dict)
         self.model = to_channels_last(to_compute_dtype(
             model.to(self.device), model_dtype(cfg))).eval()
-        self.net = ServingNet(self.model, cfg).to(self.device).eval()
+        sharding = None if mesh is None else spatial_sharding(mesh)
+        self.net = ServingNet(self.model, cfg, sharding).to(
+            self.device).eval()
         self.mean, self.std = self.net.mean, self.net.std
         self.k = cfg.test.topk
 

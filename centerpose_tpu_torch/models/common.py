@@ -19,6 +19,13 @@ mode the port's ``BatchNorm2d`` follows flax, not torch: one pair of batch
 statistics, with flax's ``E[x^2] - E[x]^2`` variance, both normalises and
 updates ``running_var`` (torch would update it with the unbiased variance,
 n/(n-1) larger, and normalise with its own variance formula).
+
+Row shards (``parallel/spatial.py``): inside ``spatial.row_sharded`` each
+op that reads a window of rows (``Conv2d``, ``ConvTranspose2d``, the bf16
+path's ``_ConvF32``, ``max_pool2d``) runs on this shard's rows and the halo
+its window reads from the neighbouring shards (``spatial.window``);
+BatchNorm in eval mode, the activations and ``upsample_nearest`` are
+row-local.  Outside it every op is the plain call.
 """
 
 from __future__ import annotations
@@ -31,10 +38,23 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from centerpose_tpu_torch.parallel import spatial
 from centerpose_tpu_torch.parallel.mesh import all_reduce_sum
 
 # Heatmap-head bias init: -log((1 - pi) / pi) with prior pi = 0.1.
 HM_BIAS_INIT = -2.19
+
+
+def conv_window(conv: nn.Module) -> spatial.Window:
+    """The rows the ``nn.Conv2d`` or ``nn.ConvTranspose2d`` ``conv``
+    reads (``spatial.window``)."""
+    p = conv.padding[0]
+    if isinstance(conv, nn.ConvTranspose2d):
+        return spatial.Window(conv.kernel_size[0], conv.stride[0],
+                              conv.dilation[0], (p, p), True,
+                              conv.output_padding[0])
+    return spatial.Window(conv.kernel_size[0], conv.stride[0],
+                          conv.dilation[0], (p, p))
 
 
 class Conv2d(nn.Conv2d):
@@ -43,7 +63,15 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        return self.conv(x, self.weight.to(x.dtype), bias)
+
+    def conv(self, x: torch.Tensor, weight: torch.Tensor,
+             bias: torch.Tensor | None) -> torch.Tensor:
+        """The conv with ``weight`` and ``bias`` as given, on row shards
+        too (``spatial.window``)."""
+        return spatial.window(x, conv_window(self), lambda t, rows: F.conv2d(
+            t, weight, bias, self.stride, (rows[0], self.padding[1]),
+            self.dilation, self.groups))
 
 
 def _narrow(dtype: torch.dtype) -> bool:
@@ -285,10 +313,10 @@ def conv_bn(conv: nn.Module, bn: nn.BatchNorm2d,
     if not _narrow(x.dtype):
         return bn(conv(x))
     transposed = isinstance(conv, nn.ConvTranspose2d)
-    y = _ConvF32.apply(x, conv.weight, transposed, conv.stride,
-                       conv.padding, conv.dilation,
-                       conv.output_padding if transposed else (0, 0),
-                       conv.groups)
+    y = spatial.window(x, conv_window(conv), lambda t, rows: _ConvF32.apply(
+        t, conv.weight, transposed, conv.stride, (rows[0], conv.padding[1]),
+        conv.dilation, conv.output_padding if transposed else (0, 0),
+        conv.groups))
     return bn(y, x.dtype).to(x.dtype)
 
 
@@ -318,10 +346,13 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     use (flax ``nn.ConvTranspose(dtype=...)``); no bias."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), None,
-                                  self.stride, self.padding,
+        w = self.weight.to(x.dtype)
+        return spatial.window(x, conv_window(self), lambda t, rows:
+                              F.conv_transpose2d(
+                                  t, w, None, self.stride,
+                                  (rows[0], self.padding[1]),
                                   self.output_padding, self.groups,
-                                  self.dilation)
+                                  self.dilation))
 
 
 def bilinear_1d(size: int) -> np.ndarray:
@@ -365,8 +396,19 @@ class DeconvBN(nn.Module):
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Nearest-neighbour upsample of an NCHW tensor by a power-of-two
     factor (each value repeated ``factor`` times in H and in W; the source
-    index ``dst / factor`` is exact)."""
+    index ``dst / factor`` is exact).  Row-local: a shard's rows upsample
+    to the shard's output rows."""
     return F.interpolate(x, scale_factor=factor, mode="nearest")
+
+
+def max_pool2d(x: torch.Tensor, kernel: int, stride: int,
+               padding: int = 0) -> torch.Tensor:
+    """``F.max_pool2d(x, kernel, stride, padding)`` (padded with -inf, as
+    flax's ``max_pool``), on row shards too: there the rows past the
+    image's edges are -inf and the neighbours' halo rows are exchanged."""
+    win = spatial.Window(kernel, stride, 1, (padding, padding))
+    return spatial.window(x, win, lambda t, rows: F.max_pool2d(
+        t, kernel, stride, (rows[0], padding)), fill=float("-inf"))
 
 
 class HeadStack(nn.Module):
@@ -415,7 +457,7 @@ class HeadStack(nn.Module):
         conv = getattr(self, name)
         if not _narrow(x.dtype):
             return conv(x)
-        y = conv._conv_forward(x, conv.weight.to(x.dtype), None)
+        y = conv.conv(x, conv.weight.to(x.dtype), None)
         bias = conv.bias.to(x.dtype).view(1, -1, 1, 1)
         return y + bias if round_sum else y.float() + bias.float()
 

@@ -23,6 +23,15 @@ site (``train_site_edge_grad``).  Each is the CUDA kernel for a CUDA tensor
 and its plain version for a CPU tensor.  At 512x512 the 16 calls of one
 forward go over 7 site shapes.  Under ``dcn_impl: conv``, the reference's
 ablation, every site is a plain 3x3 conv (``DCN._plain_conv``).
+
+On row shards (``parallel/spatial.py``) a site keeps the policy of the
+whole image's height (``spatial.global_rows``): the same R and the same
+kernel as one process.  Its input gets the rows its taps can reach from
+the neighbouring shards (``_site_rows``): R + 1 above and below at a
+clamped site (``clamped_halo``), and at an unclamped one as many as the
+offsets of this forward reach, agreed over the shards
+(``unclamped_halo``); the rows of the output computed on that halo are
+cropped.
 """
 
 from __future__ import annotations
@@ -32,15 +41,20 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from centerpose_tpu_torch.models.common import (BatchNorm2d, ConvBN, HeadStack,
                                                 _ConvF32, _narrow, bilinear_1d,
-                                                tf32_convs)
+                                                max_pool2d, tf32_convs)
 from centerpose_tpu_torch.ops.dcn_cuda import (dcn_v2, dcn_v2_fused,
                                                site_max_dy, site_om_fused,
                                                train_site_edge_grad,
                                                train_site_max_dy)
+from centerpose_tpu_torch.parallel import spatial
+
+# the rows a 3x3 conv with padding 1 reads
+_CONV3 = spatial.Window(3, 1, 1, (1, 1))
 
 
 class _OffsetMaskParams(nn.Module):
@@ -52,6 +66,53 @@ class _OffsetMaskParams(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(3, 3, in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
+
+
+def clamped_halo(max_dy: int) -> int:
+    """Rows above and below an output row that a DCN site clamped at
+    ``max_dy`` reads: tap row -1..1 plus dy in [-R, R], and the bilinear
+    corner below a fractional position (``tap_corners`` in
+    csrc/dcn_fused.cu: rows floor(sy) and floor(sy) + 1, the second with
+    weight 0 where sy is a whole row), so R + 1.  The om conv of K1 reads
+    one row each way, inside it."""
+    return int(max_dy) + 1
+
+
+def unclamped_halo(offset: torch.Tensor, limit: int) -> tuple:
+    """(above, below): the rows the unclamped taps of ``offset`` [B, h, W,
+    18] (dy at even channels) read above and below their output rows,
+    the largest over the spatial group: 1 - floor(min dy) above and 2 +
+    floor(max dy) below (tap row +-1, the corner below), at least 0, at
+    most ``limit`` (the rest of the image), and ``limit`` where an offset
+    is not finite."""
+    dy = offset[..., 0::2].float()
+    need = torch.stack([1 - torch.floor(dy.min()), 2 + torch.floor(dy.max())])
+    need = torch.nan_to_num(need, nan=limit, posinf=limit, neginf=limit)
+    need = need.clamp(0, limit)
+    sh = spatial.active()
+    dist.all_reduce(need, op=dist.ReduceOp.MAX, group=sh.group)
+    above, below = (int(v) for v in need.tolist())
+    return above, below
+
+
+def _site_rows(x: torch.Tensor, above: int, below: int) -> tuple:
+    """(rows, start): this shard's rows of the NCHW ``x`` with ``above``
+    and ``below`` more from the neighbours, cut at the image's top and
+    bottom (a DCN samples zero outside the image, as past the rows'
+    ends), and where the shard's own rows start in them."""
+    sh = spatial.active()
+    h = x.shape[2]
+    first = sh.index * h
+    rows = spatial.halo(x, above, below)
+    cut_top = max(0, above - first)
+    cut_bottom = max(0, first + h + below - h * sh.count)
+    return rows[:, :, cut_top:rows.shape[2] - cut_bottom], above - cut_top
+
+
+def _crop(y: torch.Tensor, start: int, h: int) -> torch.Tensor:
+    """The ``h`` rows of the NHWC ``y`` from ``start`` (all of it where
+    they are all of it)."""
+    return y if start == 0 and y.shape[1] == h else y[:, start:start + h]
 
 
 def _sigmoid(z: torch.Tensor, training: bool) -> torch.Tensor:
@@ -97,9 +158,11 @@ class DCN(nn.Module):
     def _plain_conv(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.permute(3, 2, 0, 1)  # [3, 3, Cin, Cout] -> OIHW
         if _narrow(x.dtype):
-            y = _ConvF32.apply(x, w, False, (1, 1), (1, 1), (1, 1), (0, 0), 1)
+            y = spatial.window(x, _CONV3, lambda t, rows: _ConvF32.apply(
+                t, w, False, (1, 1), (rows[0], 1), (1, 1), (0, 0), 1))
         else:
-            y = F.conv2d(x, w.to(x.dtype), padding=1)
+            y = spatial.window(x, _CONV3, lambda t, rows: F.conv2d(
+                t, w.to(x.dtype), padding=(rows[0], 1)))
         return y + self.bias.view(1, -1, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -107,28 +170,45 @@ class DCN(nn.Module):
             return self._plain_conv(x)
         _, _, h, w = x.shape
         dt = x.dtype
-        site = (h, w, self.in_features, self.features, self.dcn_impl,
-                self.max_dy)
+        site = (spatial.global_rows(h), w, self.in_features, self.features,
+                self.dcn_impl, self.max_dy)
         omw = self.conv_offset_mask.weight.to(dt)
         omb = self.conv_offset_mask.bias.to(dt)
         weight = self.weight.to(dt)
-        xn = x.permute(0, 2, 3, 1).contiguous()
+        sharded = spatial.active() is not None
         if not self.training and site_om_fused(*site):
-            y = dcn_v2_fused(xn, omw, omb, weight, self.bias,
-                             site_max_dy(*site), train_site_edge_grad(*site))
-            return y.permute(0, 3, 1, 2)
+            r = site_max_dy(*site)
+            xs, start = x, 0
+            if sharded:
+                xs, start = _site_rows(x, clamped_halo(r), clamped_halo(r))
+            y = dcn_v2_fused(xs.permute(0, 2, 3, 1).contiguous(), omw, omb,
+                             weight, self.bias, r,
+                             train_site_edge_grad(*site))
+            return _crop(y, start, h).permute(0, 3, 1, 2)
         # the reference's explicit path (training, and inference outside
         # the om-fused kernel): the om conv, rounded to the compute dtype,
         # then its bias in that dtype; offsets and the sigmoid-ed mask stay
         # in the compute dtype
-        om = F.conv2d(x, omw.permute(3, 2, 0, 1), padding=1)
+        om = spatial.window(x, _CONV3, lambda t, rows: F.conv2d(
+            t, omw.permute(3, 2, 0, 1), padding=(rows[0], 1)))
         om = om + omb.view(1, -1, 1, 1)
         om = om.permute(0, 2, 3, 1)
         offset = om[..., :18].contiguous()
         mask = _sigmoid(om[..., 18:], self.training).contiguous()
-        y = dcn_v2(xn, offset, mask, weight, self.bias,
-                   train_site_max_dy(*site), train_site_edge_grad(*site))
-        return y.permute(0, 3, 1, 2)
+        r = train_site_max_dy(*site)
+        xs, start = x, 0
+        if sharded:
+            if r is None:
+                above, below = unclamped_halo(offset, site[0] - h)
+            else:
+                above = below = clamped_halo(r)
+            xs, start = _site_rows(x, above, below)
+            # the halo rows' outputs are cropped: no offset, no mask
+            rows = (0, 0, 0, 0, start, xs.shape[2] - start - h)
+            offset, mask = F.pad(offset, rows), F.pad(mask, rows)
+        y = dcn_v2(xs.permute(0, 2, 3, 1).contiguous(), offset, mask, weight,
+                   self.bias, r, train_site_edge_grad(*site))
+        return _crop(y, start, h).permute(0, 3, 1, 2)
 
 
 class DeformConv(nn.Module):
@@ -166,8 +246,10 @@ def bilinear_upsample(x: torch.Tensor, factor: int,
     c = x.shape[1]
     if weight is None:
         weight = bilinear_kernel(c, factor).to(x.device, x.dtype)
-    return F.conv_transpose2d(x, weight, stride=factor, padding=factor // 2,
-                              groups=c)
+    p = factor // 2
+    win = spatial.Window(2 * factor, factor, 1, (p, p), transposed=True)
+    return spatial.window(x, win, lambda t, rows: F.conv_transpose2d(
+        t, weight, stride=factor, padding=(rows[0], p), groups=c))
 
 
 class DlaBasicBlock(nn.Module):
@@ -223,7 +305,7 @@ class Tree(nn.Module):
 
     def forward(self, x, residual=None, children=None):
         children = [] if children is None else list(children)
-        bottom = (F.max_pool2d(x, self.stride, self.stride)
+        bottom = (max_pool2d(x, self.stride, self.stride)
                   if self.stride > 1 else x)
         proj = bottom
         if self.project is not None and (residual is None or self.training):

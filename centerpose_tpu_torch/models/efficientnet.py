@@ -19,6 +19,7 @@ from centerpose_tpu_torch.models.common import (ConvBN, HeadStack,
                                                 add_numbered,
                                                 upsample_nearest)
 from centerpose_tpu_torch.models.mobilenet import SqueezeExcite
+from centerpose_tpu_torch.parallel import spatial
 
 
 class MBConv(nn.Module):
@@ -56,12 +57,17 @@ _B0_CFG = [(1, 16, 1, 1, 3), (6, 24, 2, 2, 3), (6, 40, 2, 2, 5),
 def _max_pool_same(x: torch.Tensor) -> torch.Tensor:
     """flax ``max_pool(x, (3, 3), strides=(2, 2), padding="SAME")``: the
     output ceil(n / 2) per side, the padding split low = total // 2 (the
-    extra row or column at the end), padded with -inf."""
+    extra row or column at the end), padded with -inf.  On row shards the
+    rows' padding is the whole image's, at its top and bottom, and the
+    halo rows come from the neighbours (``spatial.window``)."""
     pads = []
-    for n in (x.shape[3], x.shape[2]):
+    for n in (x.shape[3], spatial.global_rows(x.shape[2])):
         total = max((-(-n // 2) - 1) * 2 + 3 - n, 0)
         pads += [total // 2, total - total // 2]
-    return F.max_pool2d(F.pad(x, pads, value=float("-inf")), 3, 2)
+    win = spatial.Window(3, 2, 1, (pads[2], pads[3]))
+    return spatial.window(x, win, lambda t, rows: F.max_pool2d(
+        F.pad(t, pads[:2] + list(rows), value=float("-inf")), 3, 2),
+        fill=float("-inf"))
 
 
 class BiFPNLayer(nn.Module):

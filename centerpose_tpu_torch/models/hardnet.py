@@ -14,9 +14,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from centerpose_tpu_torch.models.common import ConvBN, HeadStack
+from centerpose_tpu_torch.models.common import ConvBN, HeadStack, max_pool2d
 from centerpose_tpu_torch.models.mobilenet import PoseUpsample
 
 
@@ -91,9 +90,9 @@ class PoseHardNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
-        x = F.max_pool2d(self.ConvBN_1(self.ConvBN_0(x)), 3, 2, 1)
+        x = max_pool2d(self.ConvBN_1(self.ConvBN_0(x)), 3, 2, 1)
         for i, d in enumerate(self.down):
             x = getattr(self, f"trans{i}")(getattr(self, f"block{i}")(x))
             if d:
-                x = F.max_pool2d(x, 2, 2)
+                x = max_pool2d(x, 2, 2)
         return self.HeadStack_0(self._PoseUpsample_0(x))

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from centerpose_tpu_torch.models.common import (Conv2d, ConvBN, DeconvBN,
                                                 HeadStack, add_numbered)
+from centerpose_tpu_torch.parallel.spatial import mean_hw
 
 
 def h_swish(x: torch.Tensor) -> torch.Tensor:
@@ -28,7 +29,8 @@ def h_sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 class SqueezeExcite(nn.Module):
     """Spatial mean -> 1x1 conv (bias) -> ReLU -> 1x1 conv (bias) ->
-    h-sigmoid gate on x."""
+    h-sigmoid gate on x.  The mean is the whole image's on row shards
+    too (``spatial.mean_hw``)."""
 
     def __init__(self, channels: int, reduce: int = 4):
         super().__init__()
@@ -39,7 +41,7 @@ class SqueezeExcite(nn.Module):
             nn.init.zeros_(conv.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.mean((2, 3), keepdim=True)
+        s = mean_hw(x)
         s = self.Conv_1(torch.relu(self.Conv_0(s)))
         return x * h_sigmoid(s)
 

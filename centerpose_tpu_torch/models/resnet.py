@@ -14,11 +14,11 @@ from typing import Dict, Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from centerpose_tpu_torch.models.common import (BatchNorm2d, Conv2d, ConvBN,
                                                 DeconvBN, HeadStack,
-                                                add_numbered, conv_bn)
+                                                add_numbered, conv_bn,
+                                                max_pool2d)
 
 
 class BasicBlock(nn.Module):
@@ -102,7 +102,7 @@ class PoseResNet(nn.Module):
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         x = torch.relu(conv_bn(self.Conv_0, self.BatchNorm_0, x))
         # flax's max_pool pads with -inf, as max_pool2d does
-        x = F.max_pool2d(x, 3, 2, 1)
+        x = max_pool2d(x, 3, 2, 1)
         for m in self.blocks + self.deconvs:
             x = m(x)
         return self.HeadStack_0(x)

@@ -13,9 +13,9 @@ from typing import Dict, Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from centerpose_tpu_torch.models.common import ConvBN, HeadStack, add_numbered
+from centerpose_tpu_torch.models.common import (ConvBN, HeadStack, add_numbered,
+                                                max_pool2d)
 from centerpose_tpu_torch.models.mobilenet import PoseUpsample
 
 
@@ -82,7 +82,7 @@ class PoseShuffleNetV2(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
-        x = F.max_pool2d(self.ConvBN_0(x), 3, 2, 1)
+        x = max_pool2d(self.ConvBN_0(x), 3, 2, 1)
         for m in self.units:
             x = m(x)
         return self.HeadStack_0(self._PoseUpsample_0(self.ConvBN_1(x)))

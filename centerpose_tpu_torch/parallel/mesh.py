@@ -20,14 +20,21 @@ explicit rendezvous); ``process_index`` and ``process_count`` read it, 0
 and 1 where none was joined.  Every collective is issued in the same order
 on every rank: the model and its autograd graph are the same on each, and
 the group's timeout turns a mismatch into an error, not a hang.
+
+Spatial sharding of the serving forward (``create_mesh_2d``,
+``spatial_sharding``; the reference's functions of the same names): a
+("data", "spatial") grid of ranks, the batch split over the first and the
+image rows over the second; the forward runs on row shards through
+``parallel/spatial.py`` and the heads are gathered back.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import warnings
 from datetime import timedelta
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -140,3 +147,133 @@ def _device_ids(device: torch.device):
         return None
     return [torch.cuda.current_device() if device.index is None
             else device.index]
+
+
+# ---------------------------------------------------------------- 2-D mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """A ("data", "spatial") grid of ``n_data`` x ``n_spatial`` ranks (the
+    reference's ``Mesh(devices.reshape(n_data, n_spatial), ("data",
+    "spatial"))``): this rank sits at (``data_index``, ``spatial_index``);
+    ``spatial_group`` holds its row of the grid (the ranks that split one
+    image's rows), ``data_group`` its column (the ranks that split the
+    batch).  A group of one rank is None.  ``member``: False on a rank past
+    the grid's first ``n_data * n_spatial`` ranks, which takes no part."""
+
+    n_data: int
+    n_spatial: int
+    data_index: int = 0
+    spatial_index: int = 0
+    data_group: object = None
+    spatial_group: object = None
+    member: bool = True
+
+
+def create_mesh_2d(n_data: int, n_spatial: int, group=None) -> Mesh2D:
+    """The (data, spatial) mesh over the first ``n_data * n_spatial``
+    ranks of ``group`` (the default group when None), rank r of them at
+    (r // n_spatial, r % n_spatial), as the reference reshapes
+    ``devices[:n_data * n_spatial]``.  Every rank of the default group
+    calls it (each new group is made by all).  Without a process group,
+    only the 1 x 1 mesh."""
+    n = n_data * n_spatial
+    if n < 1:
+        raise ValueError(f"mesh {n_data} x {n_spatial}")
+    if not dist.is_initialized():
+        if n != 1:
+            raise RuntimeError(f"a {n_data} x {n_spatial} mesh needs a "
+                               "process group (init_distributed)")
+        return Mesh2D(1, 1)
+    ranks = (dist.get_process_group_ranks(group) if group is not None
+             else list(range(dist.get_world_size())))
+    if len(ranks) < n:
+        raise ValueError(f"a {n_data} x {n_spatial} mesh needs {n} ranks, "
+                         f"the group has {len(ranks)}")
+    grid = [ranks[d * n_spatial:(d + 1) * n_spatial] for d in range(n_data)]
+
+    def groups(members):
+        # every rank makes every group, in the same order
+        made = [dist.new_group(m) if len(m) > 1 else None for m in members]
+        return {r: g for m, g in zip(members, made) for r in m}
+
+    spatial = groups(grid)
+    data = groups([[row[s] for row in grid] for s in range(n_spatial)])
+    me = dist.get_rank()
+    if me not in spatial:
+        return Mesh2D(n_data, n_spatial, member=False)
+    at = ranks.index(me)
+    return Mesh2D(n_data, n_spatial, at // n_spatial, at % n_spatial,
+                  data[me], spatial[me])
+
+
+class SpatialSharding:
+    """[B, H, W, C] arrays with the batch over the mesh's ``data`` axis and
+    the image rows over its ``spatial`` axis (the reference's
+    ``NamedSharding(mesh, P("data", "spatial"))``): ``shard`` takes this
+    rank's block of an array every rank holds, ``gather`` puts the blocks
+    back together on every rank, ``forward`` runs a model on the blocks
+    and returns its heads whole."""
+
+    def __init__(self, mesh: Mesh2D):
+        if not mesh.member:
+            raise ValueError("this rank is not in the mesh")
+        self.mesh = mesh
+
+    def rows(self):
+        """This rank's ``spatial.RowShards`` (None on a 1-wide axis)."""
+        from centerpose_tpu_torch.parallel.spatial import RowShards
+
+        m = self.mesh
+        if m.n_spatial == 1:
+            return None
+        return RowShards(m.spatial_group, m.spatial_index, m.n_spatial)
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's [B / n_data, H / n_spatial, ...] block of ``x``."""
+        m = self.mesh
+        b, h = x.shape[0], x.shape[1]
+        if b % m.n_data or h % m.n_spatial:
+            raise ValueError(f"[{b}, {h}, ...] does not split over a "
+                             f"{m.n_data} x {m.n_spatial} mesh")
+        bl, hl = b // m.n_data, h // m.n_spatial
+        return x[m.data_index * bl:(m.data_index + 1) * bl,
+                 m.spatial_index * hl:(m.spatial_index + 1) * hl]
+
+    def gather(self, y: torch.Tensor) -> torch.Tensor:
+        """The whole [B, H, ...] array of every rank's ``shard`` block
+        ``y``: rows over the spatial group, then batch over the data
+        group, bit for bit."""
+        from centerpose_tpu_torch.parallel.spatial import all_gather_exact
+
+        m = self.mesh
+        y = y.contiguous()
+        if m.n_spatial > 1:
+            y = torch.cat(list(all_gather_exact(
+                y, m.spatial_group, m.n_spatial, m.spatial_index)), 1)
+        if m.n_data > 1:
+            y = torch.cat(list(all_gather_exact(
+                y, m.data_group, m.n_data, m.data_index)), 0)
+        return y
+
+    def forward(self, model: torch.nn.Module,
+                images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``model(images)``'s heads ([B, H/4, W/4, C] each, NHWC), the
+        model run on this rank's block of ``images`` with its windowed
+        ops on row shards.  An eval forward only: the reference shards no
+        training step (BatchNorm's train statistics would be the
+        shard's)."""
+        from centerpose_tpu_torch.parallel.spatial import row_sharded
+
+        if model.training:
+            raise ValueError("row shards run the eval forward only")
+        with row_sharded(self.rows()):
+            out = model(self.shard(images))
+        return {k: self.gather(v) for k, v in out.items()}
+
+
+def spatial_sharding(mesh: Mesh2D) -> SpatialSharding:
+    """[B, H, W, C] arrays: batch over 'data', image rows over 'spatial'
+    (the reference's function of this name)."""
+    return SpatialSharding(mesh)

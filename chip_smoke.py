@@ -152,22 +152,36 @@ took:
    at batch 1 and 8) and ``tools/bench_eval`` (the mobilenetv3 video row
    over 64 frames, the hrnet_w32 multi-scale flip row over 8 images,
    serial and pipelined); each row printed as JSON with the card.
+15. spatial sharding, a main path (``parallel/spatial.py``): the serving
+   forward with the image rows split over ranks, through ``Detector(mesh=
+   create_mesh_2d(1, n))``: dla_34 bf16 ``pallas_full`` at 512x512 on
+   1 x 2 and 1 x 4 meshes (K1 at every site on every rank, at the shard's
+   halo'd rows), res_18 f32 and dla_34 f32 (TF32 off) on 1 x 2, dla_34
+   bf16 at 1024x1024 on 1 x 2 and 1 x 4, batch 2 from the snapshots; the
+   ranks (``python3 chip_smoke.py --sp-rank R ...``) share the one card
+   over gloo (NCCL refuses two ranks on one device; the exchanges go
+   through the host, so the times check the path, not scaling).  Each run
+   prints the gathered heads' worst difference from the one-process
+   forward beside three controls (the first call, the batch order
+   swapped, each image alone), the decoded rows matched, ms per
+   ``process()`` call sharded and in one process, and each rank's peak
+   MB.
 
 ``python3 chip_smoke.py --only training`` runs the build, the training
 main path and its trace alone, ``--only serving`` the build and the
 serving main path, ``--only data-parallel`` the build and the
-data-parallel phase (to compare two trees in one call).
+data-parallel phase, ``--only spatial`` the build and the spatial phase
+(to compare two trees in one call).
 
 Then it prints the kernels' JSON line (K1's ``launches``: the serving,
-demo and export phases' together; K2's and the backward's: the training
-main path's and the two data-parallel ranks'), the card's name and power
-limit, and
-last ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
-exit code is then not 0.  Without a CUDA device, or outside the
-repository, it prints no result and exits with 1.  It writes nothing but
-the kernel build directory (``centerpose_tpu_torch/build/``, git-ignored)
-and the training CLI's logs and checkpoints (in a temporary directory,
-removed at the end).
+demo, export and spatial phases' together; K2's and the backward's: the
+training main path's and the two data-parallel ranks'), the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``. Any failed
+check raises, and the exit code is then not 0. Without a CUDA device, or
+outside the repository, it prints no result and exits with 1. It writes
+nothing but the kernel build directory (``centerpose_tpu_torch/build/``,
+git-ignored) and the training CLI's logs and checkpoints (in a temporary
+directory, removed at the end).
 """
 
 from __future__ import annotations
@@ -321,6 +335,34 @@ EXPORT_BATCH = 8
 # The bench suite phase: timed calls per infer row (train rows take
 # max(5, BENCH_ITERS // 2) steps), video frames, multi-scale flip images.
 BENCH_ITERS, BENCH_FRAMES, BENCH_IMAGES = 10, 64, 8
+# The spatial-sharding phase (parallel/spatial.py): the serving forward
+# with the image rows split over ranks that share the one card over gloo
+# (NCCL refuses two ranks on one device; gloo's all_reduce stages CUDA
+# tensors through the host, so the times check the path and never show
+# scaling).  Each case: (factory name, compute dtype, input size, the
+# spatial widths of its 1 x n meshes), batch SP_BATCH from the name's
+# snapshot; dla_34 under pallas_full (K1 at every site at 512x512; at
+# 1024x1024 the stride-4 sites run K2 unclamped, their halo taken from the
+# offsets).  Each rank holds K1 and K2 against their plain versions on the
+# halo'd inputs its DCN sites were given (TOL_K1, TOL_K2, relative, as the
+# kernel checks).  The gathered heads are held against the one-process
+# forward at TOL_HEADS (two paths that sum in another order), the decoded
+# rows matched as the export phase matches them (match_rows at
+# test.vis_thresh): none may be left unmatched, but for bf16 at 1024x1024
+# (run for the memory per rank), where a row left unmatched must have a
+# row of the other run within one output cell and DEMO_SCORE, as the model
+# check matches bf16 centers (an H100 run of 1x4 gave one: two
+# neighbouring cells of the bf16 heatmap tied at 0.5039 on the shards and
+# not in one process, 2.37 px apart); the f32 run of that 1x4 case holds
+# the same unclamped path to every row.
+SP_BATCH, SP_ITERS, SP_TIMEOUT = 2, 3, 600
+SP_CASES = [("dla_34", "bfloat16", 512, (2, 4)),
+            ("res_18", "float32", 512, (2,)),
+            ("dla_34", "float32", 512, (2,)),
+            ("dla_34", "bfloat16", 1024, (2, 4)),
+            ("dla_34", "float32", 1024, (4,))]
+SP_SNAPSHOTS = {"dla_34": NPZ, "res_18": ROOT / "output" /
+                "res18_hard_artifact" / "params_f16.npz"}
 
 
 class SmokeFailure(RuntimeError):
@@ -2284,15 +2326,15 @@ def _start_ranks(cmds, env_of):
             for r, cmd in enumerate(cmds)]
 
 
-def _wait_ranks(procs, what: str) -> list:
+def _wait_ranks(procs, what: str, timeout: float = DP_TIMEOUT) -> list:
     """Each process's output once all have ended; fails the phase when one
-    failed or outlived DP_TIMEOUT (then all are killed)."""
+    failed or outlived ``timeout`` seconds (then all are killed)."""
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+            outs.append(p.communicate(timeout=timeout)[0])
     except subprocess.TimeoutExpired:
-        outs.append(f"timed out after {DP_TIMEOUT} s")
+        outs.append(f"timed out after {timeout} s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2544,6 +2586,362 @@ def data_parallel(state_dict, card: str) -> dict:
     return launches
 
 
+def sp_cfg(name: str, dtype: str, res: int):
+    """A spatial case's config: dla_34 the flagship's (pallas_full), other
+    names the defaults with ``model.name``; ``dtype`` and ``res`` x
+    ``res`` either way."""
+    from centerpose_tpu_torch.config import default_config, update_config
+
+    base = flagship_cfg() if name == "dla_34" else default_config()
+    return update_config(base, {"model": {
+        "name": name, "compute_dtype": dtype, "input_res": res,
+        "output_res": res // 4}})
+
+
+def sp_frames(det):
+    """SP_BATCH synthetic 640x480 frames pre-processed by ``det`` (uint8
+    [B, S, S, 3] on the card) and their metas."""
+    import numpy as np
+    import torch
+
+    from centerpose_tpu_torch.data.synthetic import render_scene
+
+    pre = [det.pre_process(render_scene(np.random.default_rng(500 + i),
+                                        640, 480, 2)[0])
+           for i in range(SP_BATCH)]
+    return torch.cat([p[0] for p in pre]), [p[1] for p in pre]
+
+
+def wall_ms(fn, iters: int) -> float:
+    """Mean wall time of ``fn`` over ``iters`` calls, the card synchronised
+    (after one warm-up call): the sharded forward waits on the host's
+    exchanges, so the two forwards are timed alike."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def sp_run(det, images):
+    """One case on ``det`` (sharded where it has a mesh): the heads of the
+    normalised images (the second forward, and the first), the decoded
+    rows (``Detector.process``, counted: K1's launches by (Cin, Cout, W)
+    and in all), ms per ``process`` call and the peak MB allocated above
+    what the case started with."""
+    import torch
+
+    from centerpose_tpu_torch.ops import dcn_cuda as dc
+
+    x = (images.float() / 255.0 - det.mean) / det.std
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        net = det.net
+        heads = [det.model(x) if net.sharding is None
+                 else net.sharding.forward(det.model, x) for _ in range(2)]
+        dc.reset_launch_counts()
+        dets = det.process(images)
+        torch.cuda.synchronize()
+    by_site = {}
+    for (cin, cout, _, w), n in dc.dcn_v2_fused.launches_by_site.items():
+        by_site[(cin, cout, w)] = by_site.get((cin, cout, w), 0) + n
+    k1 = dc.dcn_v2_fused.launches
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+    ms = wall_ms(lambda: det.process(images), SP_ITERS)
+    first, heads = ({k: v.float().cpu() for k, v in h.items()}
+                    for h in heads)
+    return {"heads": heads, "first": first, "dets": dets.cpu().numpy(),
+            "k1": k1, "k1_sites": by_site, "ms": ms, "peak_mb": peak}
+
+
+def sp_record():
+    """Wrap ``models/dla.py``'s K1 and K2 names so that the first call at
+    each set of input shapes, dtype and clamp radius is kept: returns the
+    kept ``(name, args)`` and a function that puts the names back."""
+    from centerpose_tpu_torch.models import dla
+
+    kept, seen = [], set()
+    orig = {"dcn_v2_fused": dla.dcn_v2_fused, "dcn_v2": dla.dcn_v2}
+
+    def wrap(name):
+        def call(*args):
+            key = (name, args[0].dtype, args[5],
+                   *(tuple(a.shape) for a in args[:5]))
+            if key not in seen:
+                seen.add(key)
+                kept.append((name, args))
+            return orig[name](*args)
+        return call
+
+    for name in orig:
+        setattr(dla, name, wrap(name))
+    return kept, lambda: [setattr(dla, n, f) for n, f in orig.items()]
+
+
+def sp_kernel_check(kept) -> list:
+    """Each kept DCN call's kernel (K1 or K2) against its plain version on
+    the same inputs: [(name, x shape, R, rel err, tol)], the error relative
+    to the plain output's largest magnitude, as the kernel checks read it.
+    Launches made here are not counted (``sp_run`` read them before)."""
+    import torch
+
+    from centerpose_tpu_torch.ops import dcn_cuda as dc
+    from centerpose_tpu_torch.ops.dcn import dcn_v2, dcn_v2_fused_plain
+
+    pairs = {"dcn_v2_fused": (dc.dcn_v2_fused, dcn_v2_fused_plain, TOL_K1),
+             "dcn_v2": (dc.dcn_v2, dcn_v2, TOL_K2)}
+    out = []
+    with torch.inference_mode():
+        for name, args in kept:
+            kernel, plain, tol = pairs[name]
+            got, ref = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(got).all())
+            check(got.shape == ref.shape and finite,
+                  f"spatial {name} at {tuple(args[0].shape)}: output "
+                  f"{tuple(got.shape)}, finite {finite}")
+            err = (got.float() - ref.float()).abs().max().item()
+            rel = err / max(ref.float().abs().max().item(), 1e-12)
+            out.append((name, tuple(args[0].shape), args[5], rel,
+                        tol[str(args[0].dtype).split(".")[-1]]))
+    return out
+
+
+def sp_rank(rank: int, world: int, init: str, out: str) -> None:
+    """One rank of the spatial phase: a 1 x ``world`` mesh on cuda:0 over
+    gloo, every case whose meshes include ``world`` through a sharded
+    ``Detector`` (``mesh=``), then its DCN sites' kernels against their
+    plain versions on the inputs one more ``process()`` call of the same
+    frames gave them (``sp_kernel_check``); writes the results to
+    ``out``."""
+    import torch
+
+    from centerpose_tpu_torch.inference.detector import Detector
+    from centerpose_tpu_torch.parallel.mesh import (create_mesh_2d,
+                                                    init_distributed)
+    from centerpose_tpu_torch.weights import state_dict_from_npz
+
+    torch.cuda.set_device(0)
+    init_distributed(init, world, rank, backend="gloo", device="cuda:0",
+                     timeout=SP_TIMEOUT)
+    try:
+        mesh = create_mesh_2d(1, world)
+        res = {}
+        for name, dtype, size, meshes in SP_CASES:
+            if world not in meshes:
+                continue
+            det = Detector(sp_cfg(name, dtype, size),
+                           state_dict_from_npz(str(SP_SNAPSHOTS[name])),
+                           device="cuda", mesh=mesh)
+            images, _ = sp_frames(det)
+            res[(name, dtype, size)] = sp_run(det, images)
+            # one more call, its DCN inputs kept (after sp_run's peak)
+            kept, restore = sp_record()
+            try:
+                with torch.inference_mode():
+                    det.process(images)
+            finally:
+                restore()
+            res[(name, dtype, size)]["kernels"] = sp_kernel_check(kept)
+            del det, kept
+        torch.save(res, out)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def spatial_phase(card: str) -> dict:
+    """The spatial-sharding main path: every SP_CASES case in one process
+    (the reference, with two controls of its summation-order noise: the
+    batch order swapped, and each image alone), then on 1 x 2 and 1 x 4
+    meshes of ranks sharing the card (``chip_smoke.py --sp-rank R ...``,
+    one launch of ranks per width).  Checks the gathered heads, the
+    decoded rows, every rank's heads equal, and K1 at every DCN site of
+    the 512x512 bf16 dla_34 runs.  Returns K1's launches of those runs by
+    (Cin, Cout, W) over the ranks."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from centerpose_tpu_torch.inference.detector import Detector
+    from centerpose_tpu_torch.weights import state_dict_from_npz
+
+    one, controls, metas, alone_dets = {}, {}, {}, {}
+    for name, dtype, size, _ in SP_CASES:
+        key = (name, dtype, size)
+        det = Detector(sp_cfg(name, dtype, size),
+                       state_dict_from_npz(str(SP_SNAPSHOTS[name])),
+                       device="cuda")
+        images, metas[key] = sp_frames(det)
+        one[key] = sp_run(det, images)
+        x = (images.float() / 255.0 - det.mean) / det.std
+        with torch.inference_mode():
+            swapped = {k: v.flip(0).float().cpu()
+                       for k, v in det.model(x.flip(0)).items()}
+            alone = [det.model(x[i:i + 1]) for i in range(SP_BATCH)]
+            alone = {k: torch.cat([a[k] for a in alone]).float().cpu()
+                     for k in alone[0]}
+            alone_dets[key] = np.concatenate(
+                [det.process(images[i:i + 1]).cpu().numpy()
+                 for i in range(SP_BATCH)])
+        ref = one[key]["heads"]
+        controls[key] = (head_rel_err(one[key]["first"], ref),
+                         head_rel_err(swapped, ref),
+                         head_rel_err(alone, ref))
+        del det
+    sharded = {}
+    with tempfile.TemporaryDirectory(prefix="cp_sp_") as tmp:
+        for world in sorted({n for *_, ns in SP_CASES for n in ns}):
+            outs = [str(Path(tmp) / f"w{world}_r{r}.pt")
+                    for r in range(world)]
+            init = f"file://{tmp}/rdv_{world}"
+            procs = _start_ranks(
+                [[sys.executable, str(ROOT / "chip_smoke.py"), "--sp-rank",
+                  str(r), "--sp-world", str(world), "--sp-init", init,
+                  "--sp-out", outs[r]] for r in range(world)],
+                lambda r: {})
+            t0 = time.perf_counter()
+            _wait_ranks(procs, f"spatial 1x{world}", SP_TIMEOUT)
+            say(f"  1x{world} ranks ran in {time.perf_counter() - t0:.2f} s")
+            sharded[world] = [torch.load(o, weights_only=False)
+                              for o in outs]
+    k1_sites, failed = {}, []
+    for name, dtype, size, meshes in SP_CASES:
+        key = (name, dtype, size)
+        ref = one[key]
+        vis = sp_cfg(name, dtype, size).test.vis_thresh
+        twice_err, swap_err, alone_err = controls[key]
+        ctl = _rows_matched(alone_dets[key], ref["dets"], metas[key], vis)
+        for world in meshes:
+            ranks = [r[key] for r in sharded[world]]
+            got = ranks[0]
+            err = head_rel_err(got["heads"], ref["heads"])
+            same = all(all(torch.equal(r["heads"][k], got["heads"][k])
+                           for k in got["heads"]) for r in ranks[1:])
+            n_conf, unmatched, worst_px, worst_score, far = _rows_matched(
+                got["dets"], ref["dets"], metas[key], vis)
+            k1 = sum(r["k1"] for r in ranks)
+            checked = [c for r in ranks for c in r["kernels"]]
+            for kname in sorted({c[0] for c in checked}):
+                mine = [c for c in checked if c[0] == kname]
+                worst = max(mine, key=lambda c: c[3] / c[4])
+                say(f"  spatial {name} {dtype} {size}x{size} 1x{world}: "
+                    f"{kname} against its plain version on the {len(mine)} "
+                    f"halo'd input shapes the ranks' sites gave it (x "
+                    + ", ".join(f"{list(c[1])} R={c[2]}" for c in mine)
+                    + f"): worst rel err {worst[3]:.3e} at {list(worst[1])} "
+                    f"(tol {worst[4]:.0e})")
+            for kname, shape, r, rel, tol in checked:
+                if rel > tol:
+                    failed.append(f"spatial {key} 1x{world}: {kname} at "
+                                  f"{list(shape)} R={r} rel err {rel:.3e}")
+            if name == "dla_34" and not any(c[0] == "dcn_v2_fused"
+                                            for c in checked):
+                failed.append(f"spatial {key} 1x{world}: no K1 call checked")
+            say(f"  spatial {name} {dtype} {size}x{size} batch {SP_BATCH} "
+                f"1x{world}: heads rel err vs one process {err:.3e} (tol "
+                f"{TOL_HEADS[dtype]:.0e}; controls: the first call "
+                f"{twice_err:.3e}, batch order swapped {swap_err:.3e}, each "
+                f"image alone {alone_err:.3e}); ranks' heads equal {same}; "
+                f"rows: {n_conf} score >= {vis} on either side, {unmatched} "
+                f"unmatched ({far} beyond a cell), worst center "
+                f"{worst_px:.3f} px, score "
+                f"{worst_score:.4f} (control, each image alone: {ctl[0]}, "
+                f"{ctl[1]} unmatched, {ctl[2]:.3f} px, {ctl[3]:.4f}); ms per "
+                f"process() {got['ms']:.2f} sharded (rank 0) vs "
+                f"{ref['ms']:.2f} one process; peak MB per rank "
+                + "/".join(f"{r['peak_mb']:.1f}" for r in ranks)
+                + f" vs {ref['peak_mb']:.1f} one process; K1 launches "
+                f"{k1} over the ranks ({ref['k1']} one process); {card}")
+            what = f"spatial {key} 1x{world}"
+            if err > TOL_HEADS[dtype]:
+                failed.append(f"{what}: heads rel err {err:.3e}")
+            if not same:
+                failed.append(f"{what}: the ranks' heads differ")
+            if n_conf < 1 or far or (unmatched and (
+                    size == 512 or dtype == "float32")):
+                failed.append(f"{what}: {unmatched} of {n_conf} rows "
+                              f"unmatched, {far} beyond a cell")
+            if name == "dla_34" and dtype == "bfloat16" and size == 512:
+                for r in ranks:
+                    check(set(r["k1_sites"]) == {(cin, cout, hw) for
+                                                 cin, cout, hw, _ in SITES},
+                          f"spatial 1x{world}: K1 sites {r['k1_sites']}")
+                    for site, n in r["k1_sites"].items():
+                        k1_sites[site] = k1_sites.get(site, 0) + n
+    check(not failed, "; ".join(failed))
+    return k1_sites
+
+
+def _rows_matched(a, b, metas, vis: float):
+    """``match_rows`` summed over the frames of two runs' decoded rows
+    [B, K, 40]: (rows, unmatched, worst px, worst score, unmatched rows
+    with no row of the other run within one output cell and DEMO_SCORE);
+    each unmatched row is printed with the other run's nearest."""
+    import numpy as np
+
+    n_all = u_all = far = 0
+    worst_px = worst_score = 0.0
+    for i, meta in enumerate(metas):
+        ra = _frame_rows(a[i:i + 1], meta)
+        rb = _frame_rows(b[i:i + 1], meta)
+        n, u, px, ds = match_rows(ra, rb, vis)
+        n_all, u_all = n_all + n, u_all + u
+        worst_px, worst_score = max(worst_px, px), max(worst_score, ds)
+        if not u:
+            continue
+        cell = float(np.max(meta["s"])) / meta["out_width"]
+        for s1, s2, side in ((ra, rb, "a"), (rb, ra, "b")):
+            c2 = (s2[:, 0:2] + s2[:, 2:4]) / 2
+            for row in s1[s1[:, 4] >= vis]:
+                d = np.abs(c2 - (row[0:2] + row[2:4]) / 2).max(1)
+                ds = np.abs(s2[:, 4] - row[4])
+                if ((d <= DEMO_PX) & (ds <= DEMO_SCORE)).any():
+                    continue
+                near = (d <= cell) & (ds <= DEMO_SCORE)
+                far += not near.any()
+                j = int(np.argmin(d))
+                say(f"    frame {i}: unmatched row of {side}, score "
+                    f"{row[4]:.4f}, center {(row[0:2] + row[2:4]) / 2}; "
+                    f"the other's nearest {d[j]:.3f} px away (a cell is "
+                    f"{cell:.3f} px), score {s2[j, 4]:.4f}")
+    return n_all, u_all, worst_px, worst_score, far
+
+
+def head_rel_err(a: dict, b: dict) -> float:
+    """The worst head's max |a - b| / max |b|."""
+    return max(((a[k] - b[k]).abs().max() / b[k].abs().max()).item()
+               for k in b)
+
+
+def _frame_rows(dets, meta):
+    """Decoded [1, K, 40] rows of one frame -> [K, 39] image pixels
+    (``Detector.post_process`` at scale 1)."""
+    from centerpose_tpu_torch.inference.post_process import (
+        multi_pose_post_process)
+
+    return multi_pose_post_process(dets, [meta["c"]], [meta["s"]],
+                                   meta["out_height"],
+                                   meta["out_width"])[0][1]
+
+
+def only_spatial(card: str) -> int:
+    """``--only spatial``: the build and the spatial-sharding main path
+    alone (no result line)."""
+    phase("build CUDA library", build)
+    phase("spatial sharding (main path)", lambda: spatial_phase(card))
+    say(card)
+    return 0
+
+
 def best_checkpoint(cfg, path: Path) -> None:
     """The training CLI's ``model_best`` through ``tools/evaluate.
     load_detector`` on the card: the weights it restores are the file's,
@@ -2649,6 +3047,11 @@ def main() -> int:
         dp_rank(int(args["--dp-rank"]), int(args["--dp-world"]),
                 args["--dp-init"], args["--dp-out"])
         return 0
+    if sys.argv[1:2] == ["--sp-rank"]:  # a rank of the spatial phase
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        sp_rank(int(args["--sp-rank"]), int(args["--sp-world"]),
+                args["--sp-init"], args["--sp-out"])
+        return 0
     t_all = time.perf_counter()
 
     card = phase("card", card_line)
@@ -2660,6 +3063,8 @@ def main() -> int:
         return only_serving(card)
     if sys.argv[1:] == ["--only", "data-parallel"]:
         return only_data_parallel(card)
+    if sys.argv[1:] == ["--only", "spatial"]:
+        return only_spatial(card)
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     phase("build CUDA library", build)
     entries = phase("kernel check", kernel_check)
@@ -2698,12 +3103,16 @@ def main() -> int:
     phase("bench suite", lambda: bench_phase(card))
     t_new += time.perf_counter() - t0
     say(f"  export and bench suite phases: {t_new:.2f} s together")
+    sp_launches = phase("spatial sharding (main path)",
+                        lambda: spatial_phase(card))
     for site, entry in entries.items():
+        sp_site = site[:3]  # (Cin, Cout, W): a shard's rows are fewer
         check(launches.get(site, 0) > 0 and demo_launches.get(site, 0) > 0
-              and export_launches.get(site, 0) > 0,
+              and export_launches.get(site, 0) > 0
+              and sp_launches.get(sp_site, 0) > 0,
               f"K1 never launched at site {site}")
         entry["launches"] = (launches[site] + demo_launches[site]
-                             + export_launches[site])
+                             + export_launches[site] + sp_launches[sp_site])
     for (kernel, site), entry in train_entries.items():
         check(train_launches[kernel].get(site, 0) > 0
               and dp_launches[kernel].get(site, 0) > 0,

@@ -1,4 +1,5 @@
-"""Ranks of the port's data-parallel tests (tests/test_torch_parallel*.py).
+"""Ranks of the port's data-parallel and spatial-sharding tests
+(tests/test_torch_parallel*.py, tests/test_torch_spatial*.py).
 
 ``run_ranks`` (``start_ranks``, ``wait_ranks``) starts ``world``
 processes of this file, one rank each, on
@@ -264,7 +265,125 @@ def _ref_step(rank, world, group, a):
             "model": trainer.model.state_dict()}
 
 
-JOBS = {"bn": _bn, "loss": _loss, "step": _step, "ref_step": _ref_step}
+def _spatial_model(spec: dict):
+    """The eval model of ``spec`` (``name``, ``res``, ``dcn_impl``,
+    ``dtype``, optional ``head_conv``; weights: the state dict
+    ``state_dict`` or, without one, the factory's init after
+    ``torch.manual_seed(seed)``), channels_last, in its compute dtype."""
+    import torch
+
+    from centerpose_tpu_torch.config import default_config, update_config
+    from centerpose_tpu_torch.models.common import (to_channels_last,
+                                                    to_compute_dtype)
+    from centerpose_tpu_torch.models.factory import create_model
+    from centerpose_tpu_torch.weights import load_state_dict
+
+    res = spec["res"]
+    model_ov = {"name": spec["name"], "input_res": res,
+                "output_res": res // 4, "dcn_impl": spec.get("dcn_impl",
+                                                             "xla")}
+    if "head_conv" in spec:
+        model_ov["head_conv"] = spec["head_conv"]
+    cfg = update_config(default_config(), {"model": model_ov})
+    torch.manual_seed(spec.get("seed", 0))
+    model = create_model(cfg)
+    if spec.get("state_dict") is not None:
+        load_state_dict(model, spec["state_dict"])
+    dtype = getattr(torch, spec.get("dtype", "float32"))
+    return to_channels_last(to_compute_dtype(model, dtype)).eval()
+
+
+def _spatial(rank, world, group, a):
+    """Each model of ``a['case']`` (a ``torch.save``d list of
+    ``_spatial_model`` specs, each with its input ``x`` [B, H, W, 3]) on a
+    ``a['data']`` x ``a['spatial']`` mesh (``parallel/mesh.
+    create_mesh_2d``, ``spatial_sharding``): the gathered heads, and on
+    rank 0 the same model's one-process forward on the whole input, in
+    this process (the same threads)."""
+    import torch
+
+    from centerpose_tpu_torch.parallel.mesh import (create_mesh_2d,
+                                                    spatial_sharding)
+
+    mesh = create_mesh_2d(int(a["data"]), int(a["spatial"]))
+    sharding = spatial_sharding(mesh)
+    out = []
+    for spec in torch.load(a["case"], weights_only=False):
+        model = _spatial_model(spec)
+        x = spec["x"]
+        with torch.no_grad():
+            one = model(x) if rank == 0 else None
+            out.append({"sharded": sharding.forward(model, x), "one": one})
+    return out
+
+
+def _spatial_edge(rank, world, group, a):
+    """One DCN site (``models/dla.DCN``, eval, ``pallas_full``) on image
+    rows over the ``world`` ranks, its offsets injected through the om
+    conv's bias (weights zero: every pixel has the same taps): for each dy
+    of ``a['dy']`` (comma-separated), dy and -dy in turn over the taps, so
+    that the rows beside each shard boundary sample as far as the clamp
+    lets them into the neighbours.  Each dy runs as it is and under two
+    mutants: ``halo1`` cuts the halo to 1 row, ``local`` keys the site
+    policy on the shard's height.  Returns {dy: {variant: the output of
+    the whole image (gathered rows)}, and rank 0 adds ``one``: the
+    one-process output}, with the heights the site policy was asked for."""
+    import numpy as np
+    import torch
+
+    from centerpose_tpu_torch.models import dla
+    from centerpose_tpu_torch.parallel import spatial
+
+    b, c, h, w = (int(v) for v in a["shape"].split(","))
+    r = np.random.default_rng(5)
+    site = dla.DCN(c, c, "pallas_full").eval()
+    x = torch.from_numpy(r.normal(size=(b, c, h, w)).astype(np.float32))
+    x = x.contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        site.weight.copy_(torch.from_numpy(
+            r.normal(size=site.weight.shape).astype(np.float32)))
+        site.bias.copy_(torch.from_numpy(r.normal(size=c).astype(np.float32)))
+        site.conv_offset_mask.weight.zero_()
+    policy, halo, rows = dla.site_max_dy, dla.clamped_halo, spatial.global_rows
+    seen = []
+
+    def spy(*key):
+        seen.append(key[0])
+        return policy(*key)
+
+    hl = h // world
+    shards = spatial.RowShards(group, rank, world)
+    out = {"policy_rows": seen}
+    for dy in (float(v) for v in a["dy"].split(",")):
+        omb = np.zeros(27, np.float32)
+        omb[0:18:2] = [dy if k % 2 else -dy for k in range(9)]
+        omb[1:18:2] = 0.25
+        omb[18:] = 2.0
+        with torch.no_grad():
+            site.conv_offset_mask.bias.copy_(torch.from_numpy(omb))
+        res = out[dy] = {}
+        for variant in ("sharded", "halo1", "local"):
+            dla.site_max_dy = spy if variant == "sharded" else policy
+            if variant == "halo1":
+                dla.clamped_halo = lambda max_dy: 1
+            if variant == "local":
+                spatial.global_rows = lambda n: n
+            try:
+                with torch.no_grad(), spatial.row_sharded(shards):
+                    mine = site(x[:, :, rank * hl:(rank + 1) * hl])
+            finally:
+                dla.site_max_dy, dla.clamped_halo = policy, halo
+                spatial.global_rows = rows
+            res[variant] = torch.cat(list(spatial.all_gather_exact(
+                mine.contiguous(), group, world, rank)), 2)
+        if rank == 0:
+            with torch.no_grad():
+                res["one"] = site(x)
+    return out
+
+
+JOBS = {"bn": _bn, "loss": _loss, "step": _step, "ref_step": _ref_step,
+        "spatial": _spatial, "spatial_edge": _spatial_edge}
 
 
 def main() -> None:

@@ -32,6 +32,7 @@ from centerpose_tpu_torch.models.factory import MODEL_FACTORY, create_model
 from centerpose_tpu_torch.weights import (load_npz, npz_arrays,
                                           state_dict_from_npz, torch_key)
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import (CONV_BN_KINDS, bn_inputs, conv_bn_case,
                          jax_variables, rel_err)
 from _torch_port import seeded as _seeded
@@ -59,10 +60,9 @@ def _overrides(name: str) -> dict:
     return {"model": {"name": name, "input_res": RES, "output_res": RES // 4}}
 
 
-@pytest.fixture(scope="module")
-def npz_dir():
-    with tempfile.TemporaryDirectory() as d:
-        yield Path(d)
+@pytest.fixture
+def npz_dir(tmp_path):
+    return tmp_path
 
 
 def _reference(name: str, npz_dir: Path, seed: int = 0):

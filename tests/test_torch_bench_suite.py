@@ -13,6 +13,8 @@ import pytest
 
 from centerpose_tpu_torch.tools import bench_eval, bench_suite
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 SMALL = ["model.input_res", "64", "model.output_res", "16"]
 KEYS = {"infer": {"arch", "variant", "mode", "batch", "ms_per_batch",

@@ -21,6 +21,7 @@ from centerpose_tpu_torch.train import checkpoints as ckpt
 from centerpose_tpu_torch.train.trainer import Trainer
 
 from _torch_port import bit_equal, jax_cfg, jax_variables, rel_err, torch_cfg
+from _torch_port import release_compiled, release_resources  # noqa: F401
 
 HEADS = ("hm", "wh", "hps", "reg", "hm_hp", "hp_offset")
 

@@ -24,6 +24,7 @@ from centerpose_tpu_torch.data.synthetic import render_scene
 from centerpose_tpu_torch.eval.harness import evaluate_detector
 from centerpose_tpu_torch.inference.detector import Detector
 from centerpose_tpu_torch.weights import state_dict_from_npz
+from _torch_port import release_compiled, release_resources  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 RES18 = str(ROOT / "output" / "res18_hard_artifact" / "params_f16.npz")

@@ -16,6 +16,7 @@ from centerpose_tpu_torch.models.dla import bilinear_upsample
 from centerpose_tpu_torch.ops import dcn_cuda as dc
 from centerpose_tpu_torch.ops.dcn import dcn_v2, dcn_v2_fused_plain
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import rel_err
 
 

@@ -21,6 +21,7 @@ from centerpose_tpu_torch.models.factory import create_model
 from centerpose_tpu_torch.ops import dcn_cuda as dc
 from centerpose_tpu_torch.weights import load_state_dict, state_dict_from_npz
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import (FAST_COMPILE, NPZ, _forward, _parse_hlo, _source,
                          jax_cfg, jax_variables, rel_err, torch_cfg)
 from test_torch_train import _step64

@@ -18,6 +18,7 @@ from centerpose_tpu_torch.models.dla import DeformConv
 from centerpose_tpu_torch.ops import dcn_cuda as dc
 from centerpose_tpu_torch.ops.dcn import clamp_dy, dcn_v2, dcn_v2_backward_plain
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import rel_err
 
 GRADS = ("dx", "doffset", "dmask", "dW", "dbias")

@@ -16,6 +16,8 @@ import torch
 
 from centerpose_tpu_torch.ops import dcn_cuda as dc
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
+
 # dla_34's DCN sites: (Cin, Cout, output stride); H = W = resolution / stride
 SITES = [(512, 256, 32), (256, 256, 16), (256, 128, 16), (128, 128, 8),
          (128, 64, 8), (256, 64, 16), (64, 64, 4)]

@@ -20,6 +20,7 @@ from centerpose_tpu_torch.tools import train as train_cli
 from centerpose_tpu_torch.utils import debugger as port
 
 from _torch_port import jax_cfg, jax_variables, torch_cfg, torch_model
+from _torch_port import release_compiled, release_resources  # noqa: F401
 
 RENDERS = ("pred_hm", "gt_hm", "pred_hm_hp", "gt_hm_hp")
 

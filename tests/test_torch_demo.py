@@ -17,6 +17,7 @@ from centerpose_tpu_torch.inference.detector import Detector
 from centerpose_tpu_torch.tools import demo
 from centerpose_tpu_torch.weights import state_dict_from_npz
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import NPZ, jax_cfg, jax_variables, torch_cfg
 
 # the demo CLI on the CPU at 128x128: the flagship config in float32 under

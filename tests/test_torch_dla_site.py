@@ -21,6 +21,7 @@ import centerpose_tpu_torch.models.dla as tdla
 from centerpose_tpu_torch.models.common import to_compute_dtype
 from centerpose_tpu_torch.ops import dcn_cuda as dc
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import bn_inputs, jax_variables, torch_cfg, torch_model
 
 # two of the 7 site shapes at 128x128 (Cin -> Cout @ HxW): 128->128 @16 and

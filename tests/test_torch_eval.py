@@ -18,6 +18,7 @@ from centerpose_tpu_torch.tools import evaluate as port_eval
 from centerpose_tpu_torch.tools import hard_eval
 from centerpose_tpu_torch.weights import state_dict_from_npz
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import NPZ, jax_cfg, jax_variables, torch_cfg
 
 N = 8

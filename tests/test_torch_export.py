@@ -19,6 +19,7 @@ from centerpose_tpu_torch.ops.dcn import dcn_v2_fused_plain
 from centerpose_tpu_torch.tools import export as export_cli
 from centerpose_tpu_torch.weights import state_dict_from_npz
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import NPZ, FakeCudaTensor, jax_variables
 
 ROOT = Path(__file__).resolve().parent.parent

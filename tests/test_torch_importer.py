@@ -24,6 +24,7 @@ from centerpose_tpu_torch.train import checkpoints as ckpt
 from centerpose_tpu_torch.train.trainer import Trainer
 from centerpose_tpu_torch.weights import npz_arrays, torch_key
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import (bit_equal, jax_cfg, jax_variables, loss_targets,
                          port_state_dict, seeded, shapes, torch_cfg)
 

@@ -25,13 +25,15 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 # the demo, the debugger, the importer check, the export and the bench
-# tools, data parallelism and the scaling bench import without cv2 too
+# tools, data parallelism, spatial sharding and the scaling bench import
+# without cv2 too
 assert {"centerpose_tpu_torch.utils.debugger", "centerpose_tpu_torch.tools.demo",
         "centerpose_tpu_torch.tools.check_importer",
         "centerpose_tpu_torch.tools.export",
         "centerpose_tpu_torch.tools.bench_suite",
         "centerpose_tpu_torch.tools.bench_eval",
         "centerpose_tpu_torch.parallel", "centerpose_tpu_torch.parallel.mesh",
+        "centerpose_tpu_torch.parallel.spatial",
         "centerpose_tpu_torch.tools.bench_scaling"} <= set(names)
 import chip_smoke  # importing must not run main()
 from centerpose_tpu_torch.config import default_config, update_config
@@ -46,6 +48,12 @@ images, meta = det.pre_process(img)
 dets = det.run_batch(images.numpy())
 assert dets.shape == (1, 100, 40), dets.shape
 assert np.isfinite(dets).all()
+# spatial sharding's entry point on a 1 x 1 mesh (no process group): the
+# one-process forward
+from centerpose_tpu_torch.parallel.mesh import create_mesh_2d
+meshed = Detector(cfg, state_dict_from_npz(sys.argv[1]), device="cpu",
+                  mesh=create_mesh_2d(1, 1))
+assert np.array_equal(meshed.run_batch(images.numpy()), dets)
 # the evaluation slice: a hard benchmark scene drawn without cv2, the
 # flip + multi-scale run (resize on the device, soft-NMS merge), OKS AP
 from centerpose_tpu_torch.data.synthetic import SyntheticEvalDataset

@@ -16,6 +16,7 @@ from centerpose_tpu_torch.models.common import to_compute_dtype
 from centerpose_tpu_torch.models.dla import DCN
 from centerpose_tpu_torch.ops.decode import multi_pose_decode
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import jax_cfg, jax_variables, rel_err, torch_cfg, torch_model
 
 HEADS = ("hm", "wh", "hps", "reg", "hm_hp", "hp_offset")

@@ -21,6 +21,7 @@ from centerpose_tpu_torch.data.synthetic import SyntheticPoseDataset
 from centerpose_tpu_torch.ops.soft_nms import soft_nms_39, soft_nms_39_numpy
 
 from _torch_port import jax_cfg, torch_cfg
+from _torch_port import release_compiled, release_resources  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 TARGETS = ("hm", "hm_hp", "wh", "hps", "reg", "reg_mask", "hps_mask",

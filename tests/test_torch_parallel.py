@@ -31,6 +31,7 @@ from centerpose_tpu_torch.parallel.mesh import init_distributed
 from centerpose_tpu_torch.train.checkpoints import to_host
 from centerpose_tpu_torch.train.trainer import Trainer
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_dp import bn_case, run_ranks
 from _torch_port import bit_equal, rel_err
 

@@ -17,6 +17,7 @@ from centerpose_tpu_torch.train.checkpoints import (load_checkpoint,
                                                     restore_state, to_host)
 from centerpose_tpu_torch.train.trainer import Trainer
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import bit_equal, share_cores_among_workers
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -45,9 +46,26 @@ def _env(world: int, **extra) -> dict:
                                         // world)), **extra)
 
 
-def _multihost(argv, world: int = 2) -> list:
+def _multihost(argv, world: int = 2, attempts: int = 3) -> list:
     """``tools/train.py --multihost --device cpu argv`` on ``world`` ranks
-    with torchrun's environment variables; returns each rank's output."""
+    with torchrun's environment variables; returns each rank's output.
+    The port is free when chosen but not held, so another process (another
+    xdist worker's ranks) may take it before rank 0 binds it: a run whose
+    rendezvous found it taken starts again on a new one."""
+    for attempt in range(attempts):
+        outs, codes = _multihost_once(argv, world)
+        taken = any("EADDRINUSE" in o or "ddress already in use" in o
+                    for o in outs)
+        if not (taken and any(codes)) or attempt == attempts - 1:
+            break
+    for r, code in enumerate(codes):
+        assert code == 0, f"rank {r} failed:\n" + "\n".join(
+            o[-3000:] for o in outs)
+    return outs
+
+
+def _multihost_once(argv, world: int):
+    """One run of ``_multihost``: (each rank's output, exit codes)."""
     port = str(_free_port())
     procs = [subprocess.Popen(
         [sys.executable, "-c", _MAIN, "--multihost", "--device", "cpu",
@@ -66,10 +84,7 @@ def _multihost(argv, world: int = 2) -> list:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r} failed:\n" + "\n".join(
-            o[-3000:] for o in outs)
-    return outs
+    return outs, [p.returncode for p in procs]
 
 
 def test_multihost_cli_two_ranks(tmp_path):

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_dp import start_ranks, wait_ranks
 from _torch_port import port_state_dict
 from _torch_train_step import _reference_step, check_step, step_case

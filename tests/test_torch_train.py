@@ -24,6 +24,7 @@ from centerpose_tpu_torch.train.trainer import (Optimizer, Trainer,
                                                 batch_to_device, unpack_batch)
 from centerpose_tpu_torch.weights import npz_arrays, state_dict_from_npz
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import NPZ, jax_cfg, jax_variables, rel_err, torch_cfg
 
 OV = {"train": {"wire": "compact"}, "dataset": {"max_objs": 8}}

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import pytest
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_train_step import check_train_step
 
 

@@ -17,6 +17,7 @@ from centerpose_tpu_torch.tools import train as train_cli
 from centerpose_tpu_torch.train.checkpoints import to_host
 from centerpose_tpu_torch.weights import state_dict_from_npz
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import NPZ, bit_equal, torch_cfg
 
 OPTS = ["model.input_res", "64", "model.output_res", "16",

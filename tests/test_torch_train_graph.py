@@ -15,6 +15,7 @@ import torch
 
 from centerpose_tpu_torch.models import common
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import (CONV_BN_KINDS, FAST_COMPILE,
                          check_dla34_train_reading, conv_bn_case,
                          port_state_dict, rel_err, seeded, shapes, torch_cfg)

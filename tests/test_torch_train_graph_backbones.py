@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import pytest
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import check_family_reading
 
 # the non-DLA families but hrnet_w32, whose compile takes minutes

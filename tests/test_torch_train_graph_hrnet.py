@@ -7,6 +7,7 @@ live.  Its compile takes about four minutes on a CPU (XLA's passes over
 
 import pytest
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import check_family_reading
 
 

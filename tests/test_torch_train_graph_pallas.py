@@ -6,6 +6,7 @@ minutes on a CPU, so it is in the slow tier (``-m slow``)."""
 
 import pytest
 
+from _torch_port import release_compiled, release_resources  # noqa: F401
 from _torch_port import check_dla34_train_reading
 
 
