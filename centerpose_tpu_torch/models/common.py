@@ -397,7 +397,10 @@ def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Nearest-neighbour upsample of an NCHW tensor by a power-of-two
     factor (each value repeated ``factor`` times in H and in W; the source
     index ``dst / factor`` is exact).  Row-local: a shard's rows upsample
-    to the shard's output rows."""
+    to the shard's output rows (none to none)."""
+    if not x.shape[2]:
+        b, c, _, w = x.shape
+        return x.new_zeros((b, 0, w * factor, c)).permute(0, 3, 1, 2)
     return F.interpolate(x, scale_factor=factor, mode="nearest")
 
 

@@ -26,12 +26,13 @@ ablation, every site is a plain 3x3 conv (``DCN._plain_conv``).
 
 On row shards (``parallel/spatial.py``) a site keeps the policy of the
 whole image's height (``spatial.global_rows``): the same R and the same
-kernel as one process.  Its input gets the rows its taps can reach from
-the neighbouring shards (``_site_rows``): R + 1 above and below at a
-clamped site (``clamped_halo``), and at an unclamped one as many as the
-offsets of this forward reach, agreed over the shards
-(``unclamped_halo``); the rows of the output computed on that halo are
-cropped.
+kernel as one process, on shards of unequal heights too.  Its input gets
+the rows its taps can reach from the neighbouring shards (``_site_rows``):
+R + 1 above and below at a clamped site (``clamped_halo``), and at an
+unclamped one as many as the offsets of this forward reach, agreed over
+the shards (``unclamped_halo``); the rows of the output computed on that
+halo are cropped.  A shard with no rows takes part in every exchange and
+launches no kernel.
 """
 
 from __future__ import annotations
@@ -84,11 +85,15 @@ def unclamped_halo(offset: torch.Tensor, limit: int) -> tuple:
     the largest over the spatial group: 1 - floor(min dy) above and 2 +
     floor(max dy) below (tap row +-1, the corner below), at least 0, at
     most ``limit`` (the rest of the image), and ``limit`` where an offset
-    is not finite."""
+    is not finite; 0 on a shard with no rows."""
     dy = offset[..., 0::2].float()
-    need = torch.stack([1 - torch.floor(dy.min()), 2 + torch.floor(dy.max())])
-    need = torch.nan_to_num(need, nan=limit, posinf=limit, neginf=limit)
-    need = need.clamp(0, limit)
+    if dy.numel():
+        need = torch.stack([1 - torch.floor(dy.min()),
+                            2 + torch.floor(dy.max())])
+        need = torch.nan_to_num(need, nan=limit, posinf=limit, neginf=limit)
+        need = need.clamp(0, limit)
+    else:  # a shard with no rows needs none
+        need = dy.new_zeros(2)
     sh = spatial.active()
     dist.all_reduce(need, op=dist.ReduceOp.MAX, group=sh.group)
     above, below = (int(v) for v in need.tolist())
@@ -99,14 +104,22 @@ def _site_rows(x: torch.Tensor, above: int, below: int) -> tuple:
     """(rows, start): this shard's rows of the NCHW ``x`` with ``above``
     and ``below`` more from the neighbours, cut at the image's top and
     bottom (a DCN samples zero outside the image, as past the rows'
-    ends), and where the shard's own rows start in them."""
+    ends: the whole image's bottom, also on a shorter shard), and where
+    the shard's own rows start in them."""
     sh = spatial.active()
     h = x.shape[2]
-    first = sh.index * h
+    heights = sh.heights(h, x.shape[3])
+    first = sum(heights[:sh.index])
     rows = spatial.halo(x, above, below)
     cut_top = max(0, above - first)
-    cut_bottom = max(0, first + h + below - h * sh.count)
+    cut_bottom = max(0, first + h + below - sum(heights))
     return rows[:, :, cut_top:rows.shape[2] - cut_bottom], above - cut_top
+
+
+def _no_rows(x: torch.Tensor, features: int) -> torch.Tensor:
+    """A site's output on a shard with no rows of the NCHW ``x``."""
+    b, _, _, w = x.shape
+    return x.new_zeros((b, 0, w, features)).permute(0, 3, 1, 2)
 
 
 def _crop(y: torch.Tensor, start: int, h: int) -> torch.Tensor:
@@ -170,7 +183,7 @@ class DCN(nn.Module):
             return self._plain_conv(x)
         _, _, h, w = x.shape
         dt = x.dtype
-        site = (spatial.global_rows(h), w, self.in_features, self.features,
+        site = (spatial.global_rows(x), w, self.in_features, self.features,
                 self.dcn_impl, self.max_dy)
         omw = self.conv_offset_mask.weight.to(dt)
         omb = self.conv_offset_mask.bias.to(dt)
@@ -181,6 +194,8 @@ class DCN(nn.Module):
             xs, start = x, 0
             if sharded:
                 xs, start = _site_rows(x, clamped_halo(r), clamped_halo(r))
+            if not h:  # a shard with no rows: the exchange, no kernel
+                return _no_rows(x, self.features)
             y = dcn_v2_fused(xs.permute(0, 2, 3, 1).contiguous(), omw, omb,
                              weight, self.bias, r,
                              train_site_edge_grad(*site))
@@ -206,6 +221,8 @@ class DCN(nn.Module):
             # the halo rows' outputs are cropped: no offset, no mask
             rows = (0, 0, 0, 0, start, xs.shape[2] - start - h)
             offset, mask = F.pad(offset, rows), F.pad(mask, rows)
+        if not h:
+            return _no_rows(x, self.features)
         y = dcn_v2(xs.permute(0, 2, 3, 1).contiguous(), offset, mask, weight,
                    self.bias, r, train_site_edge_grad(*site))
         return _crop(y, start, h).permute(0, 3, 1, 2)

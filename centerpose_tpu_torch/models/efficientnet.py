@@ -61,7 +61,7 @@ def _max_pool_same(x: torch.Tensor) -> torch.Tensor:
     rows' padding is the whole image's, at its top and bottom, and the
     halo rows come from the neighbours (``spatial.window``)."""
     pads = []
-    for n in (x.shape[3], spatial.global_rows(x.shape[2])):
+    for n in (x.shape[3], spatial.global_rows(x)):
         total = max((-(-n // 2) - 1) * 2 + 3 - n, 0)
         pads += [total // 2, total - total // 2]
     win = spatial.Window(3, 2, 1, (pads[2], pads[3]))

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from centerpose_tpu_torch.models.common import (Conv2d, ConvBN, DeconvBN,
                                                 HeadStack, add_numbered)
-from centerpose_tpu_torch.parallel.spatial import mean_hw
+from centerpose_tpu_torch.parallel.spatial import mean_hw, row_sharded
 
 
 def h_swish(x: torch.Tensor) -> torch.Tensor:
@@ -30,7 +30,8 @@ def h_sigmoid(x: torch.Tensor) -> torch.Tensor:
 class SqueezeExcite(nn.Module):
     """Spatial mean -> 1x1 conv (bias) -> ReLU -> 1x1 conv (bias) ->
     h-sigmoid gate on x.  The mean is the whole image's on row shards
-    too (``spatial.mean_hw``)."""
+    too (``spatial.mean_hw``), the same on every shard, and the 1x1 convs
+    read it as one process does, outside the row shards."""
 
     def __init__(self, channels: int, reduce: int = 4):
         super().__init__()
@@ -42,7 +43,8 @@ class SqueezeExcite(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = mean_hw(x)
-        s = self.Conv_1(torch.relu(self.Conv_0(s)))
+        with row_sharded(None):
+            s = self.Conv_1(torch.relu(self.Conv_0(s)))
         return x * h_sigmoid(s)
 
 

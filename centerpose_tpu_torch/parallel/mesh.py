@@ -221,37 +221,60 @@ class SpatialSharding:
             raise ValueError("this rank is not in the mesh")
         self.mesh = mesh
 
-    def rows(self):
-        """This rank's ``spatial.RowShards`` (None on a 1-wide axis)."""
-        from centerpose_tpu_torch.parallel.spatial import RowShards
+    def rows(self, images: torch.Tensor):
+        """This rank's ``spatial.RowShards`` of the [B, H, W, C] ``images``
+        (``spatial.row_split``: whole stride-32 rows, the earlier shards one
+        more where they do not split evenly); None on a 1-wide axis."""
+        from centerpose_tpu_torch.parallel.spatial import (CELL, RowShards,
+                                                           row_split)
 
         m = self.mesh
         if m.n_spatial == 1:
             return None
-        return RowShards(m.spatial_group, m.spatial_index, m.n_spatial)
+        h, w = images.shape[1], images.shape[2]
+        rows = row_split(h, m.n_spatial)
+        if 0 in rows and w % CELL:
+            raise ValueError(f"an image of {h} x {w} leaves a shard of the "
+                             f"{m.n_spatial} no rows, and such a shard "
+                             f"reads its levels' heights from their widths: "
+                             f"the width must be a multiple of {CELL}")
+        return RowShards(m.spatial_group, m.spatial_index, m.n_spatial, rows,
+                         w)
 
     def shard(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's [B / n_data, H / n_spatial, ...] block of ``x``."""
+        """This rank's block of the [B, H, W, ...] ``x``: B / n_data images
+        and its rows of the split (``rows``)."""
         m = self.mesh
-        b, h = x.shape[0], x.shape[1]
-        if b % m.n_data or h % m.n_spatial:
-            raise ValueError(f"[{b}, {h}, ...] does not split over a "
+        b = x.shape[0]
+        if b % m.n_data:
+            raise ValueError(f"a batch of {b} does not split over a "
                              f"{m.n_data} x {m.n_spatial} mesh")
-        bl, hl = b // m.n_data, h // m.n_spatial
-        return x[m.data_index * bl:(m.data_index + 1) * bl,
-                 m.spatial_index * hl:(m.spatial_index + 1) * hl]
+        bl = b // m.n_data
+        x = x[m.data_index * bl:(m.data_index + 1) * bl]
+        sh = self.rows(x)
+        if sh is None:
+            return x
+        first = sum(sh.rows[:sh.index])
+        return x[:, first:first + sh.rows[sh.index]]
 
-    def gather(self, y: torch.Tensor) -> torch.Tensor:
+    def gather(self, y: torch.Tensor, heights) -> torch.Tensor:
         """The whole [B, H, ...] array of every rank's ``shard`` block
         ``y``: rows over the spatial group, then batch over the data
-        group, bit for bit."""
+        group, bit for bit.  ``heights``: each spatial rank's rows of y's
+        level (``RowShards.heights``; None on a 1-wide spatial axis); the
+        blocks move padded to the most rows and are cropped back."""
         from centerpose_tpu_torch.parallel.spatial import all_gather_exact
 
         m = self.mesh
         y = y.contiguous()
         if m.n_spatial > 1:
-            y = torch.cat(list(all_gather_exact(
-                y, m.spatial_group, m.n_spatial, m.spatial_index)), 1)
+            most = max(heights)
+            if y.shape[1] < most:
+                y = torch.cat([y, y.new_zeros((y.shape[0], most - y.shape[1],
+                                               *y.shape[2:]))], 1)
+            blocks = all_gather_exact(y, m.spatial_group, m.n_spatial,
+                                      m.spatial_index)
+            y = torch.cat([blk[:, :n] for blk, n in zip(blocks, heights)], 1)
         if m.n_data > 1:
             y = torch.cat(list(all_gather_exact(
                 y, m.data_group, m.n_data, m.data_index)), 0)
@@ -268,9 +291,12 @@ class SpatialSharding:
 
         if model.training:
             raise ValueError("row shards run the eval forward only")
-        with row_sharded(self.rows()):
+        rows = self.rows(images)
+        with row_sharded(rows):
             out = model(self.shard(images))
-        return {k: self.gather(v) for k, v in out.items()}
+        return {k: self.gather(v, None if rows is None else
+                               rows.heights(v.shape[1], v.shape[2]))
+                for k, v in out.items()}
 
 
 def spatial_sharding(mesh: Mesh2D) -> SpatialSharding:

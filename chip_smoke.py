@@ -157,24 +157,34 @@ took:
    create_mesh_2d(1, n))``: dla_34 bf16 ``pallas_full`` at 512x512 on
    1 x 2 and 1 x 4 meshes (K1 at every site on every rank, at the shard's
    halo'd rows), res_18 f32 and dla_34 f32 (TF32 off) on 1 x 2, dla_34
-   bf16 at 1024x1024 on 1 x 2 and 1 x 4, batch 2 from the snapshots; the
-   ranks (``python3 chip_smoke.py --sp-rank R ...``) share the one card
+   bf16 at 1024x1024 on 1 x 2 and 1 x 4, and dla_34 bf16 where the rows
+   split unevenly (480x480 on 1 x 2 and 1 x 4, 480x512 and a 1080p frame,
+   1088x1920 under keep_res, on 1 x 4: K1 and K2 at each site as the whole
+   image's policy sends it), batch 2 from the snapshots; the ranks
+   (``python3 chip_smoke.py --sp-rank R ...``) share the one card
    over gloo (NCCL refuses two ranks on one device; the exchanges go
    through the host, so the times check the path, not scaling).  Each run
    prints the gathered heads' worst difference from the one-process
    forward beside three controls (the first call, the batch order
    swapped, each image alone), the decoded rows matched, ms per
-   ``process()`` call sharded and in one process, and each rank's peak
-   MB.
+   ``process()`` call sharded and in one process, each rank's peak MB
+   (and the largest and smallest shard's) and each rank's kernel launches,
+   held per site against one process's;
+16. offsets, a main path: ``tools/offsets_hist`` (``--skip-ap``) on the
+   snapshot over 8 synthetic val images: K1's own offsets at each of the
+   16 DCN sites, every value finite, every fraction in [0, 1], K1
+   launched at every site; it prints the worst share of taps past R.
 
 ``python3 chip_smoke.py --only training`` runs the build, the training
 main path and its trace alone, ``--only serving`` the build and the
 serving main path, ``--only data-parallel`` the build and the
-data-parallel phase, ``--only spatial`` the build and the spatial phase
-(to compare two trees in one call).
+data-parallel phase, ``--only spatial`` the build and the spatial phase,
+``--only offsets`` the build and the offsets phase (to compare two trees
+in one call).
 
 Then it prints the kernels' JSON line (K1's ``launches``: the serving,
-demo, export and spatial phases' together; K2's and the backward's: the
+demo, export, spatial and offsets phases' together; K2's and the
+backward's: the
 training main path's and the two data-parallel ranks'), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failed
 check raises, and the exit code is then not 0. Without a CUDA device, or
@@ -339,30 +349,47 @@ BENCH_ITERS, BENCH_FRAMES, BENCH_IMAGES = 10, 64, 8
 # with the image rows split over ranks that share the one card over gloo
 # (NCCL refuses two ranks on one device; gloo's all_reduce stages CUDA
 # tensors through the host, so the times check the path and never show
-# scaling).  Each case: (factory name, compute dtype, input size, the
-# spatial widths of its 1 x n meshes), batch SP_BATCH from the name's
-# snapshot; dla_34 under pallas_full (K1 at every site at 512x512; at
-# 1024x1024 the stride-4 sites run K2 unclamped, their halo taken from the
-# offsets).  Each rank holds K1 and K2 against their plain versions on the
+# scaling).  Each case: (factory name, compute dtype, size, the spatial
+# widths of its 1 x n meshes), batch SP_BATCH from the name's snapshot; a
+# size n is fix_res at n x n on 640x480 frames, a size (h, w) keep_res
+# (test.pad_bucket 32, upstream's padding) on w x h frames.  dla_34 runs
+# under pallas_full, each site at the kernel and radius of the whole
+# image's policy: K1 at every site at 512x512; at 1024x1024 the stride-4
+# sites run K2 unclamped, their halo taken from the offsets; 480x480 and
+# 1088x1920 (a 1080p frame) leave K1's envelope at every site (widths 120
+# and 480 at stride 4) and run K2, clamped at R = 6 at 480's stride-4
+# sites and unclamped elsewhere; 480x512 (a 512x480 frame) runs K1 at the
+# stride-4 sites (width 128).  Those three split unevenly: 15 stride-32
+# rows over 2 and 4 ranks (8/7, 4/4/4/3) and 34 over 4 (9/9/8/8).  Each
+# rank holds K1 and K2 against their plain versions on the
 # halo'd inputs its DCN sites were given (TOL_K1, TOL_K2, relative, as the
 # kernel checks).  The gathered heads are held against the one-process
 # forward at TOL_HEADS (two paths that sum in another order), the decoded
 # rows matched as the export phase matches them (match_rows at
-# test.vis_thresh): none may be left unmatched, but for bf16 at 1024x1024
-# (run for the memory per rank), where a row left unmatched must have a
-# row of the other run within one output cell and DEMO_SCORE, as the model
+# test.vis_thresh): none may be left unmatched, but for bf16 at sizes
+# other than 512x512 (run for the memory per rank), where a row left
+# unmatched must have a row of the other run within one output cell and
+# DEMO_SCORE, as the model
 # check matches bf16 centers (an H100 run of 1x4 gave one: two
 # neighbouring cells of the bf16 heatmap tied at 0.5039 on the shards and
 # not in one process, 2.37 px apart); the f32 run of that 1x4 case holds
-# the same unclamped path to every row.
+# the same unclamped path to every row.  Each rank that holds rows
+# launches K1 and K2 at each site (Cin, Cout, W) as often as one process
+# does; a rank with no rows launches none (a split of fewer stride-32 rows
+# than ranks; no case here has one) and is printed, not gated.
 SP_BATCH, SP_ITERS, SP_TIMEOUT = 2, 3, 600
 SP_CASES = [("dla_34", "bfloat16", 512, (2, 4)),
             ("res_18", "float32", 512, (2,)),
             ("dla_34", "float32", 512, (2,)),
             ("dla_34", "bfloat16", 1024, (2, 4)),
-            ("dla_34", "float32", 1024, (4,))]
+            ("dla_34", "float32", 1024, (4,)),
+            ("dla_34", "bfloat16", 480, (2, 4)),
+            ("dla_34", "bfloat16", (480, 512), (4,)),
+            ("dla_34", "bfloat16", (1080, 1920), (4,))]
 SP_SNAPSHOTS = {"dla_34": NPZ, "res_18": ROOT / "output" /
                 "res18_hard_artifact" / "params_f16.npz"}
+# The offsets phase (tools/offsets_hist.py): synthetic val images.
+OH_IMAGES = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -2586,30 +2613,44 @@ def data_parallel(state_dict, card: str) -> dict:
     return launches
 
 
-def sp_cfg(name: str, dtype: str, res: int):
+def sp_cfg(name: str, dtype: str, size):
     """A spatial case's config: dla_34 the flagship's (pallas_full), other
-    names the defaults with ``model.name``; ``dtype`` and ``res`` x
-    ``res`` either way."""
+    names the defaults with ``model.name``; ``dtype``, and fix_res at
+    ``size`` x ``size`` or, for a size (h, w), keep_res padded to 32."""
     from centerpose_tpu_torch.config import default_config, update_config
 
     base = flagship_cfg() if name == "dla_34" else default_config()
+    if isinstance(size, tuple):
+        return update_config(base, {
+            "model": {"name": name, "compute_dtype": dtype},
+            "test": {"keep_res": True, "pad_bucket": 32}})
     return update_config(base, {"model": {
-        "name": name, "compute_dtype": dtype, "input_res": res,
-        "output_res": res // 4}})
+        "name": name, "compute_dtype": dtype, "input_res": size,
+        "output_res": size // 4}})
 
 
-def sp_frames(det):
-    """SP_BATCH synthetic 640x480 frames pre-processed by ``det`` (uint8
-    [B, S, S, 3] on the card) and their metas."""
+def sp_frames(det, size):
+    """SP_BATCH synthetic frames (640x480, or w x h for a size (h, w))
+    pre-processed by ``det`` (uint8 [B, H, W, 3] on the card) and their
+    metas."""
     import numpy as np
     import torch
 
     from centerpose_tpu_torch.data.synthetic import render_scene
 
+    h, w = size if isinstance(size, tuple) else (480, 640)
     pre = [det.pre_process(render_scene(np.random.default_rng(500 + i),
-                                        640, 480, 2)[0])
+                                        w, h, 2)[0])
            for i in range(SP_BATCH)]
     return torch.cat([p[0] for p in pre]), [p[1] for p in pre]
+
+
+def sp_name(size) -> str:
+    """A case's input size, and its frame under keep_res."""
+    if not isinstance(size, tuple):
+        return f"{size}x{size}"
+    h, w = size
+    return f"{-(-h // 32) * 32}x{w} (keep_res, a {w}x{h} frame)"
 
 
 def wall_ms(fn, iters: int) -> float:
@@ -2630,9 +2671,10 @@ def wall_ms(fn, iters: int) -> float:
 def sp_run(det, images):
     """One case on ``det`` (sharded where it has a mesh): the heads of the
     normalised images (the second forward, and the first), the decoded
-    rows (``Detector.process``, counted: K1's launches by (Cin, Cout, W)
-    and in all), ms per ``process`` call and the peak MB allocated above
-    what the case started with."""
+    rows (``Detector.process``, counted: K1's and K2's launches by (Cin,
+    Cout, W) and in all), the image rows this rank holds, ms per
+    ``process`` call and the peak MB allocated above what the case started
+    with."""
     import torch
 
     from centerpose_tpu_torch.ops import dcn_cuda as dc
@@ -2649,15 +2691,22 @@ def sp_run(det, images):
         dets = det.process(images)
         torch.cuda.synchronize()
     by_site = {}
-    for (cin, cout, _, w), n in dc.dcn_v2_fused.launches_by_site.items():
-        by_site[(cin, cout, w)] = by_site.get((cin, cout, w), 0) + n
-    k1 = dc.dcn_v2_fused.launches
+    for fn in (dc.dcn_v2_fused, dc.dcn_v2):
+        by_site[fn.__name__] = site = {}
+        for (cin, cout, _, w), n in fn.launches_by_site.items():
+            site[(cin, cout, w)] = site.get((cin, cout, w), 0) + n
+    k1, k2 = dc.dcn_v2_fused.launches, dc.dcn_v2.launches
     peak = (torch.cuda.max_memory_allocated() - base) / 1e6
     ms = wall_ms(lambda: det.process(images), SP_ITERS)
     first, heads = ({k: v.float().cpu() for k, v in h.items()}
                     for h in heads)
+    shards = None if net.sharding is None else net.sharding.rows(images)
+    rows = (images.shape[1] if shards is None
+            else shards.rows[shards.index])
     return {"heads": heads, "first": first, "dets": dets.cpu().numpy(),
-            "k1": k1, "k1_sites": by_site, "ms": ms, "peak_mb": peak}
+            "k1": k1, "k2": k2, "k1_sites": by_site["dcn_v2_fused"],
+            "k2_sites": by_site["dcn_v2"], "rows": rows, "ms": ms,
+            "peak_mb": peak}
 
 
 def sp_record():
@@ -2739,7 +2788,7 @@ def sp_rank(rank: int, world: int, init: str, out: str) -> None:
             det = Detector(sp_cfg(name, dtype, size),
                            state_dict_from_npz(str(SP_SNAPSHOTS[name])),
                            device="cuda", mesh=mesh)
-            images, _ = sp_frames(det)
+            images, _ = sp_frames(det, size)
             res[(name, dtype, size)] = sp_run(det, images)
             # one more call, its DCN inputs kept (after sp_run's peak)
             kept, restore = sp_record()
@@ -2763,9 +2812,10 @@ def spatial_phase(card: str) -> dict:
     batch order swapped, and each image alone), then on 1 x 2 and 1 x 4
     meshes of ranks sharing the card (``chip_smoke.py --sp-rank R ...``,
     one launch of ranks per width).  Checks the gathered heads, the
-    decoded rows, every rank's heads equal, and K1 at every DCN site of
-    the 512x512 bf16 dla_34 runs.  Returns K1's launches of those runs by
-    (Cin, Cout, W) over the ranks."""
+    decoded rows, every rank's heads equal, the kernels' launches of each
+    rank that holds rows against one process's, and K1 at every DCN site
+    of the 512x512 bf16 dla_34 runs.  Returns K1's launches of those runs
+    by (Cin, Cout, W) over the ranks."""
     import tempfile
 
     import numpy as np
@@ -2780,7 +2830,7 @@ def spatial_phase(card: str) -> dict:
         det = Detector(sp_cfg(name, dtype, size),
                        state_dict_from_npz(str(SP_SNAPSHOTS[name])),
                        device="cuda")
-        images, metas[key] = sp_frames(det)
+        images, metas[key] = sp_frames(det, size)
         one[key] = sp_run(det, images)
         x = (images.float() / 255.0 - det.mean) / det.std
         with torch.inference_mode():
@@ -2829,11 +2879,13 @@ def spatial_phase(card: str) -> dict:
             n_conf, unmatched, worst_px, worst_score, far = _rows_matched(
                 got["dets"], ref["dets"], metas[key], vis)
             k1 = sum(r["k1"] for r in ranks)
+            k2 = sum(r["k2"] for r in ranks)
+            where = f"{name} {dtype} {sp_name(size)}"
             checked = [c for r in ranks for c in r["kernels"]]
             for kname in sorted({c[0] for c in checked}):
                 mine = [c for c in checked if c[0] == kname]
                 worst = max(mine, key=lambda c: c[3] / c[4])
-                say(f"  spatial {name} {dtype} {size}x{size} 1x{world}: "
+                say(f"  spatial {where} 1x{world}: "
                     f"{kname} against its plain version on the {len(mine)} "
                     f"halo'd input shapes the ranks' sites gave it (x "
                     + ", ".join(f"{list(c[1])} R={c[2]}" for c in mine)
@@ -2843,10 +2895,27 @@ def spatial_phase(card: str) -> dict:
                 if rel > tol:
                     failed.append(f"spatial {key} 1x{world}: {kname} at "
                                   f"{list(shape)} R={r} rel err {rel:.3e}")
-            if name == "dla_34" and not any(c[0] == "dcn_v2_fused"
-                                            for c in checked):
-                failed.append(f"spatial {key} 1x{world}: no K1 call checked")
-            say(f"  spatial {name} {dtype} {size}x{size} batch {SP_BATCH} "
+            for kname, n in (("dcn_v2_fused", ref["k1"]),
+                              ("dcn_v2", ref["k2"])):
+                if n and not any(c[0] == kname for c in checked):
+                    failed.append(f"spatial {key} 1x{world}: one process "
+                                  f"launched {kname}, no rank's call of it "
+                                  f"was checked")
+            for i, r in enumerate(ranks):
+                if not r["rows"]:
+                    say(f"  spatial {where} 1x{world}: rank {i} holds no "
+                        f"rows: K1 {r['k1']}, K2 {r['k2']} launches (a rank "
+                        f"with no rows launches no kernel; not gated)")
+                elif (r["k1_sites"], r["k2_sites"]) != (ref["k1_sites"],
+                                                        ref["k2_sites"]):
+                    failed.append(
+                        f"spatial {key} 1x{world}: rank {i} ({r['rows']} "
+                        f"rows) launched K1 {r['k1_sites']} K2 "
+                        f"{r['k2_sites']} by site, one process K1 "
+                        f"{ref['k1_sites']} K2 {ref['k2_sites']}")
+            big = max(ranks, key=lambda r: r["rows"])
+            small = min(ranks, key=lambda r: r["rows"])
+            say(f"  spatial {where} batch {SP_BATCH} "
                 f"1x{world}: heads rel err vs one process {err:.3e} (tol "
                 f"{TOL_HEADS[dtype]:.0e}; controls: the first call "
                 f"{twice_err:.3e}, batch order swapped {swap_err:.3e}, each "
@@ -2859,15 +2928,21 @@ def spatial_phase(card: str) -> dict:
                 f"process() {got['ms']:.2f} sharded (rank 0) vs "
                 f"{ref['ms']:.2f} one process; peak MB per rank "
                 + "/".join(f"{r['peak_mb']:.1f}" for r in ranks)
-                + f" vs {ref['peak_mb']:.1f} one process; K1 launches "
-                f"{k1} over the ranks ({ref['k1']} one process); {card}")
+                + f" vs {ref['peak_mb']:.1f} one process (largest shard, "
+                f"{big['rows']} image rows: {big['peak_mb']:.1f}; smallest, "
+                f"{small['rows']}: {small['peak_mb']:.1f}); rows per rank "
+                + "/".join(str(r["rows"]) for r in ranks)
+                + f"; launches over the ranks K1 {k1}, K2 {k2} (one process "
+                f"K1 {ref['k1']}, K2 {ref['k2']}; per rank K1 "
+                + "/".join(str(r["k1"]) for r in ranks) + ", K2 "
+                + "/".join(str(r["k2"]) for r in ranks) + f"); {card}")
             what = f"spatial {key} 1x{world}"
             if err > TOL_HEADS[dtype]:
                 failed.append(f"{what}: heads rel err {err:.3e}")
             if not same:
                 failed.append(f"{what}: the ranks' heads differ")
             if n_conf < 1 or far or (unmatched and (
-                    size == 512 or dtype == "float32")):
+                    size == 512 or dtype == "float32")):  # see SP_CASES
                 failed.append(f"{what}: {unmatched} of {n_conf} rows "
                               f"unmatched, {far} beyond a cell")
             if name == "dla_34" and dtype == "bfloat16" and size == 512:
@@ -2931,6 +3006,60 @@ def _frame_rows(dets, meta):
     return multi_pose_post_process(dets, [meta["c"]], [meta["s"]],
                                    meta["out_height"],
                                    meta["out_width"])[0][1]
+
+
+def offsets_phase(card: str) -> dict:
+    """``tools/offsets_hist`` on the snapshot (the reference tool's config:
+    pallas_full, bf16, 512x512) over OH_IMAGES synthetic val images,
+    ``--skip-ap``: every site's row (16) finite, every fraction in [0,
+    1]; K1 launched at every site (its ``om`` is what the tool reads).
+    Returns K1's launches by (Cin, Cout, W)."""
+    import math
+    import tempfile
+
+    import torch
+
+    from centerpose_tpu_torch.ops import dcn_cuda as dc
+    from centerpose_tpu_torch.tools import offsets_hist
+
+    with tempfile.TemporaryDirectory(prefix="cp_oh_") as tmp:
+        dc.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = offsets_hist.main(["--images", str(OH_IMAGES), "--skip-ap",
+                                 "--json", str(Path(tmp) / "oh.json")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {}
+    for (cin, cout, _, w), n in dc.dcn_v2_fused.launches_by_site.items():
+        launches[(cin, cout, w)] = launches.get((cin, cout, w), 0) + n
+    sites = out["sites"]
+    fracs = ("frac_dy_gt1", "frac_dy_gt4", "frac_dy_clamped")
+    check(len(sites) == 16, f"offsets: {len(sites)} sites, not 16")
+    for row in sites:
+        values = [v for k, v in row.items() if k not in ("site", "shape")]
+        check(all(math.isfinite(v) for v in values)
+              and all(0.0 <= row[k] <= 1.0 for k in fracs),
+              f"offsets: {row}")
+    check(set(launches) == {(cin, cout, hw) for cin, cout, hw, _ in SITES},
+          f"offsets: K1 launches by site {launches}")
+    worst = max(sites, key=lambda r: r["frac_dy_clamped"])
+    top = max(sites, key=lambda r: r["dy_max"])
+    say(f"  offsets over {OH_IMAGES} images (K1's om, bf16, 512x512): "
+        f"{len(sites)} sites; worst share of taps past R "
+        f"{out['worst_frac_dy_clamped']:.6f} at {worst['site']} (R "
+        f"{worst['max_dy']}); largest |dy| {top['dy_max']} at {top['site']} "
+        f"({top['shape']}); K1 launches {dc.dcn_v2_fused.launches}; "
+        f"{wall:.2f} s; {card}")
+    return launches
+
+
+def only_offsets(card: str) -> int:
+    """``--only offsets``: the build and the offsets phase alone (no
+    result line)."""
+    phase("build CUDA library", build)
+    phase("offsets (main path)", lambda: offsets_phase(card))
+    say(card)
+    return 0
 
 
 def only_spatial(card: str) -> int:
@@ -3065,6 +3194,8 @@ def main() -> int:
         return only_data_parallel(card)
     if sys.argv[1:] == ["--only", "spatial"]:
         return only_spatial(card)
+    if sys.argv[1:] == ["--only", "offsets"]:
+        return only_offsets(card)
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     phase("build CUDA library", build)
     entries = phase("kernel check", kernel_check)
@@ -3105,14 +3236,17 @@ def main() -> int:
     say(f"  export and bench suite phases: {t_new:.2f} s together")
     sp_launches = phase("spatial sharding (main path)",
                         lambda: spatial_phase(card))
+    oh_launches = phase("offsets (main path)", lambda: offsets_phase(card))
     for site, entry in entries.items():
         sp_site = site[:3]  # (Cin, Cout, W): a shard's rows are fewer
         check(launches.get(site, 0) > 0 and demo_launches.get(site, 0) > 0
               and export_launches.get(site, 0) > 0
-              and sp_launches.get(sp_site, 0) > 0,
+              and sp_launches.get(sp_site, 0) > 0
+              and oh_launches.get(sp_site, 0) > 0,
               f"K1 never launched at site {site}")
         entry["launches"] = (launches[site] + demo_launches[site]
-                             + export_launches[site] + sp_launches[sp_site])
+                             + export_launches[site] + sp_launches[sp_site]
+                             + oh_launches[sp_site])
     for (kernel, site), entry in train_entries.items():
         check(train_launches[kernel].get(site, 0) > 0
               and dp_launches[kernel].get(site, 0) > 0,

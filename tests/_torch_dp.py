@@ -352,7 +352,7 @@ def _spatial_edge(rank, world, group, a):
         return policy(*key)
 
     hl = h // world
-    shards = spatial.RowShards(group, rank, world)
+    shards = spatial.RowShards(group, rank, world, (hl,) * world, w)
     out = {"policy_rows": seen}
     for dy in (float(v) for v in a["dy"].split(",")):
         omb = np.zeros(27, np.float32)
@@ -367,7 +367,7 @@ def _spatial_edge(rank, world, group, a):
             if variant == "halo1":
                 dla.clamped_halo = lambda max_dy: 1
             if variant == "local":
-                spatial.global_rows = lambda n: n
+                spatial.global_rows = lambda t: t.shape[2]
             try:
                 with torch.no_grad(), spatial.row_sharded(shards):
                     mine = site(x[:, :, rank * hl:(rank + 1) * hl])

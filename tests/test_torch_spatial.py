@@ -3,10 +3,14 @@ create_mesh_2d, spatial_sharding``, ``parallel/spatial.py``) against the
 reference's GSPMD-partitioned forward (``tests/test_spatial_shard.py``) and
 the port's one-process forward.
 
-The row arithmetic runs in this process; the sharded forwards run on gloo
-ranks on the CPU (``tests/_torch_dp.py``, job ``spatial``), where the DCN
-sites take the kernels' plain versions.  Tolerances: float32 ``atol=2e-5``
-as the reference's test, unless a case says otherwise."""
+The row arithmetic (even and uneven splits, the halo assembled as the
+exchange hands the rows over) runs in this process; the sharded forwards
+run on gloo ranks on the CPU (``tests/_torch_dp.py``, job ``spatial``),
+where the DCN sites take the kernels' plain versions: even splits, and
+heights whose stride-32 rows do not split evenly (160x160 and 96x96 on
+1 x 4, the latter with a rank of no rows; 96x96 on 1 x 2), which the
+reference's GSPMD forward pads.  Tolerances: float32 ``atol=2e-5`` as the
+reference's test, unless a case says otherwise."""
 
 from __future__ import annotations
 
@@ -78,7 +82,8 @@ def test_window_rows_slice_the_unsharded_op(k, s, d, pad, transposed,
     assert whole.shape[2] == spatial.out_rows(win, h * count)
     ho = whole.shape[2] // count
     for i in range(count):
-        top, bottom, offset, rows_out = spatial.shard_halo(win, h, i, count)
+        top, bottom, offset, rows_out = spatial.shard_halo(win, (h,) * count,
+                                                           i)
         assert rows_out == ho
         lo, hi = i * h - top, (i + 1) * h + bottom
         above = max(-lo, 0)
@@ -88,10 +93,99 @@ def test_window_rows_slice_the_unsharded_op(k, s, d, pad, transposed,
         assert torch.equal(got, whole[:, :, i * ho:(i + 1) * ho]), i
 
 
-def test_uneven_split_raises():
-    """A height that does not split evenly over the shards raises."""
-    with pytest.raises(ValueError, match="split"):
-        spatial.shard_halo(spatial.Window(3, 2, 1, (1, 1)), 3, 0, 2)
+# Uneven splits of one level, each shard's rows: a level of 8 rows per
+# stride-32 row (stride 4) with 5 cells over 4 shards (2/1/1/1), 3 over 4
+# (1/1/1/0: a shard with no rows), 3 over 2 (2/1) and 34 over 4 (9/9/8/8,
+# a 1088-row image).
+UNEVEN = [(16, 8, 8, 8), (8, 8, 8, 0), (16, 8), (72, 72, 64, 64)]
+
+
+def _exchange(x, heights, reach):
+    """Every shard's rows of ``x`` and the pieces the exchange hands
+    over (``spatial.edge_rows`` of each), stacked as ``halo`` gathers
+    them."""
+    starts = np.cumsum((0,) + tuple(heights))
+    blocks = [x[:, :, a:a + h] for a, h in zip(starts, heights)]
+    return blocks, torch.stack([spatial.edge_rows(b, reach) for b in blocks])
+
+
+@pytest.mark.parametrize("heights", UNEVEN, ids=lambda h: "-".join(map(
+    str, h)))
+@pytest.mark.parametrize("k,s,d,pad,transposed", WINDOWS)
+def test_window_rows_on_uneven_shards(k, s, d, pad, transposed, heights):
+    """On shards of unequal (and no) rows: each shard's output rows,
+    computed from its halo as ``spatial.assemble`` puts it together out of
+    every shard's ``edge_rows`` (padded to the largest halo of any shard,
+    as the exchange moves them), with no row padding and cropped at its
+    offset, equal the unsharded op's output cut as ``split_out`` cuts it,
+    bit for bit (float64).  A shard with no rows has no output rows."""
+    win = spatial.Window(k, s, d, pad, transposed)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(1, 3, sum(heights), 12)))
+    whole = _op(win, x, pad)
+    outs = spatial.split_out(win, heights)
+    assert sum(outs) == whole.shape[2]
+    halos = [spatial.shard_halo(win, heights, i) for i in range(len(heights))]
+    reach = (max(max(t[0], 0) for t in halos),
+             max(max(t[1], 0) for t in halos))
+    blocks, pieces = _exchange(x, heights, reach)
+    lo = 0
+    for i, (top, bottom, offset, ho) in enumerate(halos):
+        assert ho == outs[i] and bool(ho) == bool(heights[i])
+        if not ho:
+            continue
+        rows = spatial.assemble(blocks[i], pieces, heights, i, top, bottom,
+                                reach[0])
+        got = _op(win, rows, (0, 0))[:, :, offset:offset + ho]
+        assert torch.equal(got, whole[:, :, lo:lo + ho]), i
+        lo += ho
+
+
+@pytest.mark.parametrize("heights", [(2, 1, 1, 1), (1, 1, 1, 0), (9, 9, 8, 8),
+                                     (8, 7)],
+                         ids=lambda h: "-".join(map(str, h)))
+def test_halo_spans_unequal_shards(heights):
+    """A halo of 7 rows each way (a clamped DCN site's R + 1 at R = 6) at
+    the stride-32 level of the uneven splits: each shard's rows with the
+    halo, from the shards above and below over as many as it spans (past
+    a shard of no rows too), zero past the image, equal the zero-padded
+    image's rows, bit for bit."""
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(1, 2, sum(heights), 5)))
+    reach = (7, 7)
+    blocks, pieces = _exchange(x, heights, reach)
+    padded = F.pad(x, (0, 0, 7, 7))
+    lo = 0
+    for i, h in enumerate(heights):
+        got = spatial.assemble(blocks[i], pieces, heights, i, 7, 7, 7)
+        assert torch.equal(got, padded[:, :, lo:lo + h + 14]), i
+        lo += h
+
+
+@pytest.mark.parametrize("h,count,rows", [
+    (160, 4, (64, 32, 32, 32)), (96, 4, (32, 32, 32, 0)),
+    (480, 2, (256, 224)), (1088, 4, (288, 288, 256, 256))])
+def test_row_split_takes_whole_cells(h, count, rows):
+    """``row_split``: whole stride-32 rows, the earlier shards one more."""
+    assert spatial.row_split(h, count) == rows
+
+
+@pytest.mark.parametrize("h,w,count,condition", [
+    (160, 64, 3, "divisible by the shard count"),
+    (144, 64, 4, "height must be a multiple of 32"),
+    (96, 100, 4, "width must be a multiple of 32")])
+def test_refused_heights_raise(h, w, count, condition):
+    """What the split refuses, through the sharding's public ``shard``: a
+    height the shard count does not divide (as the reference's
+    ``device_put`` of ``P("data", "spatial")``), one that is not a multiple
+    of the model's stride 32, and a width that is not where a shard gets
+    no rows (such a shard reads its levels' heights from their widths);
+    the message names the condition."""
+    from centerpose_tpu_torch.parallel.mesh import Mesh2D, spatial_sharding
+
+    sharding = spatial_sharding(Mesh2D(1, count))
+    with pytest.raises(ValueError, match=condition):
+        sharding.shard(torch.zeros(1, h, w, 3))
 
 
 def _save(tmp_path, specs) -> str:
@@ -142,17 +236,17 @@ def test_res18_2x4_matches_reference_and_one_process(tmp_path):
                                    err_msg=head)
 
 
-@pytest.fixture(scope="module")
-def dla34_reference():
-    """The reference's dla_34 (``xla``, the snapshot) at 128x128 on a 1 x 4
-    mesh of its virtual devices, and the input (batch 2)."""
+def _dla34_gspmd(res: int):
+    """The reference's dla_34 (``xla``, the snapshot) at res x res on a
+    1 x 4 mesh of its virtual devices (GSPMD pads the uneven levels), and
+    the input (batch 2)."""
     from centerpose_tpu.models.factory import create_model
     from centerpose_tpu.parallel.mesh import (create_mesh_2d, replicated,
                                               spatial_sharding)
 
-    x = np.random.default_rng(0).normal(size=(2, 128, 128, 3)).astype(
+    x = np.random.default_rng(0).normal(size=(2, res, res, 3)).astype(
         np.float32)
-    model = create_model(jax_cfg(128, "xla"))
+    model = create_model(jax_cfg(res, "xla"))
     variables = jax_variables()
     mesh = create_mesh_2d(1, 4)
     fwd = jax.jit(lambda v, a: model.apply(v, a, train=False),
@@ -161,6 +255,12 @@ def dla34_reference():
             jax.device_put(jnp.asarray(x), spatial_sharding(mesh)))
     out = fwd.lower(*args).compile(compiler_options=FAST_COMPILE)(*args)
     return x, {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.fixture(scope="module")
+def dla34_reference():
+    """``_dla34_gspmd`` at 128x128 (one stride-32 row per shard)."""
+    return _dla34_gspmd(128)
 
 
 @pytest.mark.parametrize("n_spatial", [2, 4])
@@ -192,6 +292,70 @@ def test_dla34_row_shards(n_spatial, dla34_reference, tmp_path):
                                        err_msg=f"{impl} {head}")
             if impl == "xla":
                 assert rel_err(got[head], want[head]) < 1e-4, head
+
+
+FACTORY = ["res_18", "res_34", "res_50", "res_101", "res_152", "dla_34",
+           "hrnet_w32", "hrnet_w48", "mobilenetv2", "mobilenetv3",
+           "shufflenetv2", "hardnet", "darknet", "efficientnet"]
+
+
+# The uneven dla_34 cases on 1 x 4, (H, W, dcn_impl): 160x160 (5 stride-32
+# rows: 2/1/1/1) and 96x96 (3: 1/1/1/0, a rank with no rows), each under
+# ``xla`` and ``pallas_full`` (K2's path: no site is om-fused at these
+# widths), and 96x128 under ``pallas_full`` (K1's path at the stride-4
+# sites, width 32, R = 12).
+UNEVEN_DLA = [(160, 160, "xla"), (160, 160, "pallas_full"), (96, 96, "xla"),
+              (96, 96, "pallas_full"), (96, 128, "pallas_full")]
+
+
+@pytest.fixture(scope="module")
+def uneven_on_four_ranks(tmp_path_factory):
+    """The reference's 1 x 4 GSPMD forward at 160x160, and one launch of
+    four ranks for every ``UNEVEN_DLA`` case (the snapshot) and every
+    factory name at 96x96 (its seeded init, batch 1): (the reference's
+    heads, {case: results}), a case being ``UNEVEN_DLA``'s or a name."""
+    from centerpose_tpu_torch.weights import state_dict_from_npz
+
+    from _torch_port import NPZ
+
+    tmp = tmp_path_factory.mktemp("uneven")
+    x160, want = _dla34_gspmd(160)
+    x96 = np.random.default_rng(4).normal(size=(2, 96, 128, 3)).astype(
+        np.float32)
+    sd = state_dict_from_npz(NPZ)
+    specs = [{"name": "dla_34", "res": h, "head_conv": 256,
+              "dcn_impl": impl, "state_dict": sd,
+              "x": torch.from_numpy(x160 if h == 160 else x96[:, :, :w])}
+             for h, w, impl in UNEVEN_DLA]
+    specs += [{"name": n, "res": 96, "x": torch.from_numpy(x96[:1, :, :96])}
+              for n in FACTORY]
+    ranks = run_ranks("spatial", 4, tmp, case=_save(tmp, specs), data=1,
+                      spatial=4)
+    for r in ranks[1:]:  # every rank holds the gathered heads
+        for mine, first in zip(r, ranks[0]):
+            assert all(torch.equal(v, first["sharded"][k])
+                       for k, v in mine["sharded"].items())
+    return want, dict(zip(UNEVEN_DLA + FACTORY, ranks[0]))
+
+
+@pytest.mark.parametrize("h,w,impl", UNEVEN_DLA)
+def test_dla34_uneven_row_shards(h, w, impl, uneven_on_four_ranks):
+    """dla_34 from the snapshot on 1 x 4 where the rows do not split
+    evenly: 160x160 (2/1/1/1 stride-32 rows), 96x96 and 96x128 (1/1/1/0,
+    one rank holds no rows and still enters every exchange), under
+    ``xla`` (every site unclamped) and ``pallas_full``: equal to the
+    port's one-process forward (``ATOL``) on every rank, and at 160x160
+    under ``xla`` within 1e-4 of the reference's 1 x 4 GSPMD forward (as
+    ``test_dla34_row_shards``)."""
+    want, cases = uneven_on_four_ranks
+    case = cases[h, w, impl]
+    got, one = _heads(case["sharded"]), _heads(case["one"])
+    for head in got:
+        assert got[head].shape == (2, h // 4, w // 4, one[head].shape[3])
+        np.testing.assert_allclose(got[head], one[head], atol=ATOL,
+                                   err_msg=f"{impl} {head}")
+        if h == 160 and impl == "xla":
+            assert rel_err(got[head], want[head]) < 1e-4, head
 
 
 EDGE_DY = [9.0, 5.5]
@@ -227,23 +391,20 @@ def test_dcn_clamp_edge_reads_the_global_policy(dy, clamp_edge):
         assert np.abs(res[mutant].numpy() - one).max() > 1e-2, mutant
 
 
-FACTORY = ["res_18", "res_34", "res_50", "res_101", "res_152", "dla_34",
-           "hrnet_w32", "hrnet_w48", "mobilenetv2", "mobilenetv3",
-           "shufflenetv2", "hardnet", "darknet", "efficientnet"]
-
-
 @pytest.fixture(scope="module")
 def factory_on_row_shards(tmp_path_factory):
-    """Each factory name at 64x64, batch 1, its seeded init, on a 1 x 2
-    mesh (one launch of two ranks for all 14) with the one-process
-    forward of each."""
+    """Each factory name at 64x64 (even rows) and 96x96 (3 stride-32 rows:
+    2/1), batch 1, its seeded init, on a 1 x 2 mesh (one launch of two
+    ranks for all 28) with the one-process forward of each: {(name,
+    res): results}."""
     tmp = tmp_path_factory.mktemp("factory")
-    x = torch.from_numpy(np.random.default_rng(2).normal(
-        size=(1, 64, 64, 3)).astype(np.float32))
-    specs = [{"name": n, "res": 64, "x": x} for n in FACTORY]
+    cases = [(n, res) for res in (64, 96) for n in FACTORY]
+    specs = [{"name": n, "res": res, "x": torch.from_numpy(
+        np.random.default_rng(2).normal(size=(1, res, res, 3)).astype(
+            np.float32))} for n, res in cases]
     ranks = run_ranks("spatial", 2, tmp, case=_save(tmp, specs), data=1,
                       spatial=2)
-    return dict(zip(FACTORY, ranks[0]))
+    return dict(zip(cases, ranks[0]))
 
 
 # The seeded inits' heads range from ~0.1 to ~1e6 in magnitude with depth
@@ -255,9 +416,7 @@ def factory_on_row_shards(tmp_path_factory):
 RTOL_FACTORY = 1e-5
 
 
-@pytest.mark.parametrize("name", FACTORY)
-def test_every_factory_name_on_row_shards(name, factory_on_row_shards):
-    res = factory_on_row_shards[name]
+def _factory_case(res):
     got, one = _heads(res["sharded"]), _heads(res["one"])
     assert got.keys() == one.keys() and got
     for head in got:
@@ -265,3 +424,22 @@ def test_every_factory_name_on_row_shards(name, factory_on_row_shards):
         scale = max(np.abs(one[head]).max(), 1.0)
         err = np.abs(got[head] - one[head]).max()
         assert err <= RTOL_FACTORY * scale, (head, err, scale)
+
+
+@pytest.mark.parametrize("name", FACTORY)
+def test_every_factory_name_on_row_shards(name, factory_on_row_shards):
+    _factory_case(factory_on_row_shards[name, 64])
+
+
+@pytest.mark.parametrize("name", FACTORY)
+def test_every_factory_name_on_uneven_row_shards(name, factory_on_row_shards):
+    """96x96 on 1 x 2: the first rank holds 64 rows, the second 32."""
+    _factory_case(factory_on_row_shards[name, 96])
+
+
+@pytest.mark.parametrize("name", FACTORY)
+def test_every_factory_name_with_a_rank_of_no_rows(name,
+                                                   uneven_on_four_ranks):
+    """96x96 on 1 x 4: 32/32/32/0 rows, the last rank with none enters
+    every exchange (and the squeeze-excite means) and adds nothing."""
+    _factory_case(uneven_on_four_ranks[1][name])
