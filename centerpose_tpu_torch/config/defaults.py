@@ -45,11 +45,14 @@ class ModelConfig:
     # defaults (ops/dcn_cuda.DEFAULT_MAX_DY); a positive value forces that
     # radius (lowered to the row-major cap where the reference lowers it).
     dcn_max_dy: int = 0
-    # Layout/fusion switches of the reference's TPU kernels; the port reads
-    # neither.  The layout one changes nothing; the port's eval sites take
-    # the om-fused kernel where the reference does with dcn_fused_om on
-    # (the default: ops/dcn_cuda.site_om_fused).
+    # Inference DCN sites inside the om-fused envelope take the om-fused
+    # kernel (K1, ops/dcn_cuda.site_om_fused) where this is on, as the
+    # reference's do; off, they compute the offset/mask conv in the
+    # compute dtype and then the DCN from explicit offsets (K2), as the
+    # reference's explicit path (models/dla.py: DCN).
     dcn_fused_om: bool = True
+    # The reference's TPU layout switch (channel-second kernels); it
+    # changes no value, and the port, which keeps one layout, ignores it.
     dcn_chsec: bool = True
 
     def heads(self) -> Dict[str, int]:

@@ -10,10 +10,11 @@ the stride-4 map.
 Inside the model tensors are NCHW in ``channels_last`` memory, so the NHWC
 DCN op takes them with a permute and no copy.  In eval mode a DCN site
 runs the om-fused ``ops/dcn_cuda.dcn_v2_fused`` (K1) where the reference
-runs its om-fused kernel (``site_om_fused``: ``pallas``/``pallas_full``
-inside the fused envelope, all 7 sites at 512x512), at the clamp radius the
-reference's inference policy gives the site (``site_max_dy``).  Elsewhere
-(every site under ``dcn_impl: xla``), and in train mode as the reference
+runs its om-fused kernel (``dcn_fused_om`` on and ``site_om_fused``:
+``pallas``/``pallas_full`` inside the fused envelope, all 7 sites at
+512x512), at the clamp radius the reference's inference policy gives the
+site (``site_max_dy``).  Elsewhere (every site under ``dcn_impl: xla`` or
+with ``dcn_fused_om`` off), and in train mode as the reference
 with ``train=True``, it runs the offset/mask conv as a conv in the compute
 dtype, rounded where the reference's compiled site rounds it, and then
 ``ops/dcn_cuda.dcn_v2`` (K2, whose gradient is the backward kernel) at the
@@ -156,12 +157,13 @@ class DCN(nn.Module):
     float32_params = ("bias",)
 
     def __init__(self, in_features: int, features: int, dcn_impl: str = "xla",
-                 max_dy: int = 0):
+                 max_dy: int = 0, fused_om: bool = True):
         super().__init__()
         self.in_features = in_features
         self.features = features
         self.dcn_impl = dcn_impl
         self.max_dy = max_dy
+        self.fused_om = fused_om
         self.weight = nn.Parameter(torch.empty(3, 3, in_features, features))
         nn.init.normal_(self.weight, std=float(np.sqrt(2.0 / (9 * in_features))))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -189,7 +191,7 @@ class DCN(nn.Module):
         omb = self.conv_offset_mask.bias.to(dt)
         weight = self.weight.to(dt)
         sharded = spatial.active() is not None
-        if not self.training and site_om_fused(*site):
+        if self.fused_om and not self.training and site_om_fused(*site):
             r = site_max_dy(*site)
             xs, start = x, 0
             if sharded:
@@ -201,9 +203,9 @@ class DCN(nn.Module):
                              train_site_edge_grad(*site))
             return _crop(y, start, h).permute(0, 3, 1, 2)
         # the reference's explicit path (training, and inference outside
-        # the om-fused kernel): the om conv, rounded to the compute dtype,
-        # then its bias in that dtype; offsets and the sigmoid-ed mask stay
-        # in the compute dtype
+        # the om-fused kernel or with it switched off): the om conv,
+        # rounded to the compute dtype, then its bias in that dtype;
+        # offsets and the sigmoid-ed mask stay in the compute dtype
         om = spatial.window(x, _CONV3, lambda t, rows: F.conv2d(
             t, omw.permute(3, 2, 0, 1), padding=(rows[0], 1)))
         om = om + omb.view(1, -1, 1, 1)
@@ -238,9 +240,10 @@ class DeformConv(nn.Module):
     as the reference's bf16 BatchNorm does."""
 
     def __init__(self, in_features: int, features: int, dcn_impl: str = "xla",
-                 dcn_max_dy: int = 0):
+                 dcn_max_dy: int = 0, dcn_fused_om: bool = True):
         super().__init__()
-        self.DCN_0 = DCN(in_features, features, dcn_impl, dcn_max_dy)
+        self.DCN_0 = DCN(in_features, features, dcn_impl, dcn_max_dy,
+                         dcn_fused_om)
         self.BatchNorm_0 = BatchNorm2d(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -375,16 +378,16 @@ class IDAUp(nn.Module):
 
     def __init__(self, features: int, channels: Sequence[int],
                  up_factors: Sequence[int], dcn_impl: str = "xla",
-                 dcn_max_dy: int = 0):
+                 dcn_max_dy: int = 0, dcn_fused_om: bool = True):
         super().__init__()
         self.up_factors = [int(f) for f in up_factors]
         self.float32_params = tuple(f"up_{i}" for i in range(1, len(channels))
                                     if self.up_factors[i] > 1)
         for i in range(1, len(channels)):
             self.add_module(f"proj_{i}", DeformConv(
-                channels[i], features, dcn_impl, dcn_max_dy))
+                channels[i], features, dcn_impl, dcn_max_dy, dcn_fused_om))
             self.add_module(f"node_{i}", DeformConv(
-                features, features, dcn_impl, dcn_max_dy))
+                features, features, dcn_impl, dcn_max_dy, dcn_fused_om))
             f = self.up_factors[i]
             if f > 1:
                 self.register_buffer(f"up_{i}", bilinear_kernel(features, f),
@@ -415,7 +418,8 @@ class DLAUp(nn.Module):
     """Progressive aggregation of trunk levels startp..5 down to stride 4."""
 
     def __init__(self, startp: int, channels: Sequence[int],
-                 dcn_impl: str = "xla", dcn_max_dy: int = 0):
+                 dcn_impl: str = "xla", dcn_max_dy: int = 0,
+                 dcn_fused_om: bool = True):
         super().__init__()
         self.startp = startp
         channels = list(channels)
@@ -426,7 +430,8 @@ class DLAUp(nn.Module):
             j = -i - 2
             up_f = [s // scales[j] for s in scales[j:]]
             self.add_module(f"ida_{i}", IDAUp(
-                channels[j], in_channels[j:], up_f, dcn_impl, dcn_max_dy))
+                channels[j], in_channels[j:], up_f, dcn_impl, dcn_max_dy,
+                dcn_fused_om))
             for t in range(j + 1, 0):
                 scales[t] = scales[j]
                 in_channels[t] = channels[j]
@@ -448,18 +453,20 @@ class DLASeg(nn.Module):
 
     def __init__(self, heads: Dict[str, int], head_conv: int = 256,
                  down_ratio: int = 4, last_level: int = 5,
-                 dcn_impl: str = "xla", dcn_max_dy: int = 0):
+                 dcn_impl: str = "xla", dcn_max_dy: int = 0,
+                 dcn_fused_om: bool = True):
         super().__init__()
         self.first_level = int(np.log2(down_ratio))
         self.last_level = last_level
         trunk = (16, 32, 64, 128, 256, 512)
         self.base = DLATrunk(trunk)
         self.dla_up = DLAUp(self.first_level, trunk[self.first_level:],
-                            dcn_impl, dcn_max_dy)
+                            dcn_impl, dcn_max_dy, dcn_fused_om)
         n = last_level - self.first_level
         self.ida_up = IDAUp(trunk[self.first_level],
                             trunk[self.first_level:last_level],
-                            [2 ** i for i in range(n)], dcn_impl, dcn_max_dy)
+                            [2 ** i for i in range(n)], dcn_impl, dcn_max_dy,
+                            dcn_fused_om)
         self.HeadStack_0 = HeadStack(trunk[self.first_level], heads, head_conv)
         self.compute_dtype = torch.float32  # see models/common.py
 

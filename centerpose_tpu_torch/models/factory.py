@@ -32,7 +32,8 @@ def model_dtype(cfg: Config) -> torch.dtype:
 def _dla34(cfg: Config, heads: Dict[str, int]) -> nn.Module:
     return DLASeg(heads=heads, head_conv=cfg.model.head_conv,
                   dcn_impl=cfg.model.dcn_impl,
-                  dcn_max_dy=cfg.model.dcn_max_dy)
+                  dcn_max_dy=cfg.model.dcn_max_dy,
+                  dcn_fused_om=cfg.model.dcn_fused_om)
 
 
 def _with_heads(build: Callable[..., nn.Module], *args) -> Callable:

@@ -29,16 +29,16 @@ Counterpart of ``centerpose_tpu/ops/dcn_pallas.py``.  Three parts:
   split of the reduction, ring stages, shared memory), computed here from
   the shapes and checked by the kernel's entry point.
 * **Operators and autograd.**  K1 is the ``torch.library`` operator
-  ``centerpose::dcn_v2_fused`` (a fake kernel for tracing, a FLOP formula,
-  the plain version on the CPU, the kernel on CUDA), so that
-  ``torch.export`` and ``torch.compile`` keep it as one node; its
-  registered gradient launches the backward kernel (the reference's
-  ``_fused_fwd``/``_fused_bwd``).  K2 (``dcn_v2``) is a
-  ``torch.autograd.Function`` on a CUDA tensor with the same backward
-  (``_fwd``/``_bwd``/``_bwd_core``); it and the backward are bound by
-  ``ctypes`` and cannot be traced.  A CPU tensor takes the plain version
-  (``ops/dcn.py``), differentiated by autograd; a CUDA tensor launches the
-  kernel or raises.
+  ``centerpose::dcn_v2_fused`` and K2 the operator ``centerpose::dcn_v2``
+  (each with a fake kernel for tracing, a FLOP formula, the plain version
+  on the CPU and the kernel on CUDA), so that ``torch.export`` and
+  ``torch.compile`` keep each call as one node wherever a DCN site runs;
+  their registered gradients launch the backward kernel (the reference's
+  ``_fused_fwd``/``_fused_bwd`` and ``_fwd``/``_bwd``/``_bwd_core``).  The
+  backward itself is bound by ``ctypes`` and called only from those
+  gradients.  A CPU tensor takes the plain version (``ops/dcn.py``),
+  differentiated by autograd where gradients are on; a CUDA tensor
+  launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -780,25 +780,56 @@ def dcn_v2_backward(x, offset, mask, weight, ct, max_dy, edge_grad=1.0):
             dw.to(weight.dtype), dbias)
 
 
-class _DcnV2(torch.autograd.Function):
-    """K2 forward, backward kernel backward (``dcn_v2_pallas``'s VJP with
-    ``kernel_bwd=True``)."""
+@torch.library.custom_op("centerpose::dcn_v2", mutates_args=(),
+                         device_types="cpu")
+def dcn_v2_op(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+              weight: torch.Tensor, bias: Optional[torch.Tensor],
+              max_dy: Optional[float], edge_grad: float) -> torch.Tensor:
+    """K2 as one operator, ``centerpose::dcn_v2``: -> y, as
+    ``launch_forward``.  The CPU implementation is the plain version; the
+    CUDA one launches the kernel (and counts the launch, also in a replay
+    of an exported or compiled program)."""
+    return dcn_v2_plain(x, offset, mask, weight, bias, max_dy, edge_grad)
 
-    @staticmethod
-    def forward(ctx, x, offset, mask, weight, bias, max_dy, edge_grad):
-        ctx.max_dy = max_dy
-        ctx.edge_grad = edge_grad
-        ctx.has_bias = bias is not None
-        ctx.save_for_backward(x, offset, mask, weight)
-        return launch_forward(x, offset, mask, weight, bias, max_dy)
 
-    @staticmethod
-    def backward(ctx, gy):
-        x, offset, mask, weight = ctx.saved_tensors
-        dx, doff, dmask, dw, dbias = dcn_v2_backward(
-            x, offset, mask, weight, gy, ctx.max_dy, ctx.edge_grad)
-        return (dx, doff, dmask, dw, dbias if ctx.has_bias else None, None,
-                None)
+@dcn_v2_op.register_kernel("cuda")
+def _(x, offset, mask, weight, bias, max_dy, edge_grad):
+    return launch_forward(x, offset, mask, weight, bias, max_dy)
+
+
+@dcn_v2_op.register_fake
+def _(x, offset, mask, weight, bias, max_dy, edge_grad):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, h, w, weight.shape[-1]))
+
+
+def _dcn_setup(ctx, inputs, output):
+    x, offset, mask, weight, bias, max_dy, edge_grad = inputs
+    ctx.max_dy, ctx.edge_grad = max_dy, edge_grad
+    ctx.has_bias = bias is not None
+    ctx.save_for_backward(x, offset, mask, weight)
+
+
+def _dcn_backward(ctx, gy):
+    """``dcn_v2_pallas``'s VJP with ``kernel_bwd=True``: the backward
+    kernel on a CUDA tensor, each gradient cast as the reference casts it
+    (``dcn_v2_backward``); on the CPU autograd of the plain version."""
+    x, offset, mask, weight = ctx.saved_tensors
+    dx, doff, dmask, dw, dbias = dcn_v2_backward(
+        x, offset, mask, weight, gy, ctx.max_dy, ctx.edge_grad)
+    return (dx, doff, dmask, dw, dbias if ctx.has_bias else None, None,
+            None)
+
+
+dcn_v2_op.register_autograd(_dcn_backward, setup_context=_dcn_setup)
+
+
+@register_flop_formula(torch.ops.centerpose.dcn_v2)
+def _dcn_flops(x_shape, offset_shape, mask_shape, weight_shape, *args,
+               **kwargs) -> int:
+    """The product: 2 B H W 9 Cin Cout."""
+    b, h, w, cin = x_shape
+    return 2 * b * h * w * 9 * cin * weight_shape[-1]
 
 
 def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
@@ -810,13 +841,18 @@ def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     the site's clamp radius or None (unclamped), ``edge_grad`` the clamp's
     gradient at exactly |dy| = max_dy.  -> [B,H,W,Cout] in x's dtype.
 
+    It calls the operator ``centerpose::dcn_v2`` (``torch.export`` and
+    ``torch.compile`` keep it as one node), except on the CPU with
+    gradients on, where the plain version is differentiated by autograd.
     A CPU tensor takes the plain version (``ops/dcn.dcn_v2``); a CUDA
     tensor launches the kernel (x, offset, mask and weight float32 or
     bfloat16, all one dtype; bias float32; all contiguous) or raises, and
     its gradient launches the backward kernel."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and torch.is_grad_enabled():
         return dcn_v2_plain(x, offset, mask, weight, bias, max_dy, edge_grad)
-    return _DcnV2.apply(x, offset, mask, weight, bias, max_dy, edge_grad)
+    return dcn_v2_op(x, offset, mask, weight, bias,
+                     None if max_dy is None else float(max_dy),
+                     float(edge_grad))
 
 
 def _fused_plain_om(x, omw, omb, weight, bias, max_dy, edge_grad):

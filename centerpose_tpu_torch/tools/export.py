@@ -7,11 +7,12 @@ StableHLO artifact and compiles an AOT engine.  Here:
   serving function (``inference/detector.ServingNet``: normalised float32
   images -> forward, clamped sigmoid, flip average, decode; the weights,
   mean and std held in the program) at one static input shape, saved as a
-  ``.pt2`` with ``torch.export.save``, reloaded and run.  K1 stays one
-  node per om-fused DCN site (the operator ``centerpose::dcn_v2_fused``).
+  ``.pt2`` with ``torch.export.save``, reloaded and run.  Each DCN call
+  stays one node: K1 (the operator ``centerpose::dcn_v2_fused``) at an
+  om-fused site, K2 (``centerpose::dcn_v2``) at every other.
 * ``--format aot`` (the engine analog): the same program compiled by
   ``torch.compile(fullgraph=True)`` for the current device; compile time,
-  FLOPs per call (``FlopCounterMode``, K1 counted by its formula) and
+  FLOPs per call (``FlopCounterMode``, K1 and K2 by their formulas) and
   memory.  Not persisted, as the reference's is not.
 * ``--load PATH`` runs an artifact on zeros of its input shape.
 
@@ -141,7 +142,8 @@ class ServingProgram:
         return out
 
     def flops(self, images: torch.Tensor) -> int:
-        """FLOPs of one call (``FlopCounterMode``; K1 by its formula)."""
+        """FLOPs of one call (``FlopCounterMode``; K1 and K2 by their
+        formulas)."""
         from torch.utils.flop_counter import FlopCounterMode
 
         with FlopCounterMode(display=False) as counter:

@@ -73,7 +73,12 @@ took:
    DEMO_PX and DEMO_SCORE of eager's; the export, save, load and compile
    seconds, the artifact's MB, FLOPs per call, the peak temporary MB, ms
    per call compiled, reloaded and eager, and one traced call of each
-   (device busy of wall);
+   (device busy of wall); then two exports where DCN sites run K2 (the
+   operator ``centerpose::dcn_v2``): ``pallas_full`` at 1024x1024, batch
+   1 (11 K1 and 5 K2 calls), and ``xla`` at 512x512, batch 2 (16 K2
+   calls, unclamped), each saved, reloaded and run: one operator node per
+   eager call, K1 and K2 launches by site as eager's, rows bit-equal (not
+   compiled);
 8. training, a main path: the port's ``Trainer`` at batch 8, bfloat16,
    ``pallas_full``, compact wire, on batches encoded by the port's
    ``encode_example`` (train augmentation on) from synthetic frames: one
@@ -173,19 +178,31 @@ took:
 16. offsets, a main path: ``tools/offsets_hist`` (``--skip-ap``) on the
    snapshot over 8 synthetic val images: K1's own offsets at each of the
    16 DCN sites, every value finite, every fraction in [0, 1], K1
-   launched at every site; it prints the worst share of taps past R.
+   launched at every site; it prints the worst share of taps past R;
+17. ablation, a main path: ``tools/ablate_step`` at batch 8 (the serving
+   forward with and without decode, the trunk, the ``conv`` forward, the
+   forward with ``dcn_fused_om`` off, the training step and its ``conv``
+   counterpart: wall and device-busy ms per call, every one finite and
+   above 0; K1, K2 and backward launches per call as ABL_LAUNCHES) and
+   ``tools/bench_input_pipeline`` on ABL_IMAGES images (render, encode,
+   the loader over 0, 1 and all cores with either encoder, the prefetch
+   of both wires, whose bytes per image must be their tensors'
+   arithmetic, and the card's training rate); each printed as JSON with
+   the card; the unfused-om forward's heads and decoded rows against the
+   fused forward's on 8 frames.
 
 ``python3 chip_smoke.py --only training`` runs the build, the training
 main path and its trace alone, ``--only serving`` the build and the
 serving main path, ``--only data-parallel`` the build and the
 data-parallel phase, ``--only spatial`` the build and the spatial phase,
-``--only offsets`` the build and the offsets phase (to compare two trees
-in one call).
+``--only offsets`` the build and the offsets phase, ``--only ablation``
+the build and the ablation phase (to compare two trees in one call).
 
 Then it prints the kernels' JSON line (K1's ``launches``: the serving,
-demo, export, spatial and offsets phases' together; K2's and the
-backward's: the
-training main path's and the two data-parallel ranks'), the card's name
+demo, export, spatial and offsets phases' together; K2's: the training
+main path's, the two data-parallel ranks', the ``xla`` export's and the
+ablation phase's; the backward's: the training main path's, the two
+data-parallel ranks' and the ablation phase's), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failed
 check raises, and the exit code is then not 0. Without a CUDA device, or
 outside the repository, it prints no result and exits with 1. It writes
@@ -342,6 +359,15 @@ DEMO_NMS_RTOL, DEMO_NMS_ATOL = 1e-4, 1e-7
 # matched to them at the demo's limits (Inductor fuses the elementwise
 # work around the convs and the decode).
 EXPORT_BATCH = 8
+# Exports wherever a DCN site runs K2 (the operator centerpose::dcn_v2),
+# after the flagship's: (what, model overrides, size, batch, K1 calls, K2
+# calls per forward).  At 1024x1024 the stride-4 sites (width 256) leave
+# K1's envelope and run K2 unclamped; under xla every site runs K2
+# unclamped.  Each reloaded program's rows bit-equal to eager's and its
+# K1 and K2 launches by site equal to eager's; not compiled (Inductor
+# takes 71-107 s per program).
+EXPORT_K2_CASES = [("pallas_full 1024", {}, 1024, 1, 11, 5),
+                   ("xla 512", {"dcn_impl": "xla"}, 512, 2, 0, 16)]
 # The bench suite phase: timed calls per infer row (train rows take
 # max(5, BENCH_ITERS // 2) steps), video frames, multi-scale flip images.
 BENCH_ITERS, BENCH_FRAMES, BENCH_IMAGES = 10, 64, 8
@@ -377,7 +403,7 @@ BENCH_ITERS, BENCH_FRAMES, BENCH_IMAGES = 10, 64, 8
 # launches K1 and K2 at each site (Cin, Cout, W) as often as one process
 # does; a rank with no rows launches none (a split of fewer stride-32 rows
 # than ranks; no case here has one) and is printed, not gated.
-SP_BATCH, SP_ITERS, SP_TIMEOUT = 2, 3, 600
+SP_BATCH, SP_ITERS, SP_TIMEOUT = 2, 2, 600
 SP_CASES = [("dla_34", "bfloat16", 512, (2, 4)),
             ("res_18", "float32", 512, (2,)),
             ("dla_34", "float32", 512, (2,)),
@@ -390,6 +416,25 @@ SP_SNAPSHOTS = {"dla_34": NPZ, "res_18": ROOT / "output" /
                 "res18_hard_artifact" / "params_f16.npz"}
 # The offsets phase (tools/offsets_hist.py): synthetic val images.
 OH_IMAGES = 8
+# The ablation phase: tools/ablate_step at batch TRAIN_BATCH over
+# ABL_ITERS calls per row (train rows max(1, ABL_ITERS // 2) steps), and
+# tools/bench_input_pipeline over ABL_IMAGES images per loader run and
+# ABL_SAMPLES rendered and encoded ones.  K1, K2 and backward launches per
+# call of each row (16 DCN calls per forward; K1 one launch a call in
+# bf16).  The unfused-om forward against the fused one on EXPORT_BATCH
+# frames, two functions: the unfused site rounds its om conv to bf16 (a
+# step of 0.25 cells at |dy| 32-64) where K1 keeps the offsets in f32.
+# Their heads differ by a few bf16 steps at the worst pixel: max |a - b| /
+# max |b| read 5.263e-2 on an H100 (8 frames) and 5.04e-2 at hm_hp with
+# the plain versions on a CPU, whose relative L2 per head read 2.4e-3 to
+# 4.0e-3; TOL_UNFUSED holds (max rel, relative L2) at about twice those.
+# The decoded rows are matched as the export phase matches them.
+ABL_ITERS, ABL_IMAGES, ABL_SAMPLES = 3, 16, 4
+TOL_UNFUSED = (1e-1, 1e-2)
+ABL_LAUNCHES = {"infer_full": (16, 0, 0), "infer_fwd_only": (16, 0, 0),
+                "infer_fwd_unfused_om": (0, 16, 0), "trunk": (0, 0, 0),
+                "infer_fwd_convsub": (0, 0, 0), "train_full": (0, 16, 16),
+                "train_convsub": (0, 0, 0)}
 
 
 class SmokeFailure(RuntimeError):
@@ -999,8 +1044,10 @@ def export_phase(state_dict, card: str, device: str = "cuda"):
     """The deployment path: the flagship's serving function exported with
     ``torch.export`` at batch EXPORT_BATCH, saved, reloaded through the
     port's loader (``tools/export.load_serving``) and run, then compiled
-    (``torch.compile``, fullgraph).  Returns the K1 launch counts by site
-    of the reloaded and the compiled call."""
+    (``torch.compile``, fullgraph); then EXPORT_K2_CASES
+    (``export_k2_case``).  Returns the K1 launch counts by site of the
+    flagship's reloaded and compiled calls, and K2's of the K2 cases'
+    reloaded calls."""
     import tempfile
 
     import numpy as np
@@ -1136,7 +1183,86 @@ def export_phase(state_dict, card: str, device: str = "cuda"):
     check(n_conf >= EXPORT_BATCH, f"export: only {n_conf} confident rows")
     check(unmatched == 0, f"export: {unmatched} of {n_conf} confident rows "
           "of the compiled program have no match in Detector.process's")
-    return launches
+    k2_launches = {}
+    for case in EXPORT_K2_CASES:
+        for site, n in export_k2_case(state_dict, card, *case,
+                                      device=device).items():
+            k2_launches[site] = k2_launches.get(site, 0) + n
+    return launches, k2_launches
+
+
+def export_k2_case(state_dict, card: str, what: str, model: dict, size: int,
+                   batch: int, k1_calls: int, k2_calls: int,
+                   device: str = "cuda") -> dict:
+    """The flagship's serving function with ``model`` overrides at
+    ``size``, batch ``batch``, exported, saved, reloaded through
+    ``load_serving`` and run: K1 and K2 operator nodes as eager's calls
+    (``k1_calls``, ``k2_calls``), K1 and K2 launches by site of the
+    reloaded call equal to eager's, rows bit-equal.  Returns K2's launches
+    by site of the reloaded call."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from centerpose_tpu_torch.config import update_config
+    from centerpose_tpu_torch.data.synthetic import render_scene
+    from centerpose_tpu_torch.inference.detector import Detector
+    from centerpose_tpu_torch.ops import dcn_cuda as dc
+    from centerpose_tpu_torch.tools.export import (export_serving,
+                                                   load_serving,
+                                                   save_serving)
+
+    cfg = update_config(flagship_cfg(), {"model": {
+        **model, "input_res": size, "output_res": size // 4}})
+    det = Detector(cfg, state_dict, device=device)
+    frames = [render_scene(np.random.default_rng(450 + i), 640, 480, 2)[0]
+              for i in range(batch)]
+    x = torch.cat([det.pre_process(f)[0] for f in frames]).float()
+    x = (x / 255.0 - det.mean) / det.std
+
+    def counted(fn):
+        dc.reset_launch_counts()
+        out = fn(x)
+        torch.cuda.synchronize()
+        return out, {k.__name__: dict(k.launches_by_site)
+                     for k in (dc.dcn_v2_fused, dc.dcn_v2)}
+
+    with torch.inference_mode():
+        eager, eager_sites = counted(det.process)
+    per_call = dc.KERNELS_PER_CALL[torch.bfloat16]
+    calls = (sum(eager_sites["dcn_v2_fused"].values()) // per_call,
+             sum(eager_sites["dcn_v2"].values()))
+    check(calls == (k1_calls, k2_calls),
+          f"export {what}: eager K1, K2 calls {calls}, not "
+          f"{(k1_calls, k2_calls)}")
+    t0 = time.perf_counter()
+    program = export_serving(det, x)
+    t_export = time.perf_counter() - t0
+    targets = [n.target for n in program.graph.nodes]
+    nodes = (targets.count(torch.ops.centerpose.dcn_v2_fused.default),
+             targets.count(torch.ops.centerpose.dcn_v2.default))
+    check(nodes == calls, f"export {what}: K1, K2 nodes {nodes}, eager "
+          f"calls {calls}")
+    with tempfile.TemporaryDirectory(prefix="cp_export_k2_") as tmp:
+        path = str(Path(tmp) / "program.pt2")
+        save_serving(program, det, path)
+        size_mb = Path(path).stat().st_size / 1e6
+        served = load_serving(path)
+    reloaded, sites = counted(served)
+    equal = torch.equal(reloaded, eager)
+    say(f"  export dla_34 bf16 {what}x{size} batch {batch}: export "
+        f"{t_export:.2f} s, {size_mb:.2f} MB; K1, K2 nodes {nodes}; "
+        f"reloaded call launches K1 {sum(sites['dcn_v2_fused'].values())} "
+        f"K2 {sum(sites['dcn_v2'].values())}, by site as eager's: "
+        f"{sites == eager_sites}; rows bit-equal to Detector.process: "
+        f"{equal}; {card}")
+    check(sites == eager_sites, f"export {what}: reloaded launches by site "
+          f"{sites}, eager {eager_sites}")
+    check(equal, f"export {what}: the reloaded program's rows differ from "
+          f"Detector.process's (max |diff| "
+          f"{(reloaded - eager).abs().max().item():.3e})")
+    return sites["dcn_v2"]
 
 
 def bench_phase(card: str) -> None:
@@ -3053,6 +3179,144 @@ def offsets_phase(card: str) -> dict:
     return launches
 
 
+def wire_bytes_per_image(cfg, wire: str) -> int:
+    """The bytes one encoded training example carries to the device
+    (``encode_example`` without its meta entries c and s): the image
+    (float32, or uint8 and 6 float32 colour coefficients on the compact
+    wire), the two heatmaps (float32, or float16 on the compact wire) and
+    the float32 and int32 targets of ``max_objs`` objects."""
+    res, out = cfg.model.input_res, cfg.model.output_res
+    k, j = cfg.dataset.max_objs, cfg.model.num_joints
+    compact = wire == "compact"
+    image = res * res * 3 * (1 if compact else 4) + (6 * 4 if compact else 0)
+    heatmaps = out * out * (1 + j) * (2 if compact else 4)
+    # wh, hps, reg, ind, reg_mask, hps_mask, hp_offset, hp_ind, hp_mask
+    targets = 4 * (2 * k + 2 * j * k + 2 * k + k + k + 2 * j * k + 2 * j * k
+                   + j * k + j * k)
+    return image + heatmaps + targets
+
+
+def unfused_om_check(state_dict, card: str) -> None:
+    """The forward with ``dcn_fused_om`` off against the fused one on
+    EXPORT_BATCH frames: heads within TOL_UNFUSED, every row scoring >=
+    test.vis_thresh on either side matched (``match_rows``)."""
+    import numpy as np
+    import torch
+
+    from centerpose_tpu_torch.data.synthetic import render_scene
+    from centerpose_tpu_torch.inference.detector import Detector
+    from centerpose_tpu_torch.tools.ablate_step import model_cfg
+
+    fused = Detector(model_cfg("pallas_full"), state_dict, device="cuda")
+    unfused = Detector(model_cfg("pallas_full", fused_om=False), state_dict,
+                       device="cuda")
+    frames = [render_scene(np.random.default_rng(400 + i), 640, 480, 2)[0]
+              for i in range(EXPORT_BATCH)]
+    pre = [fused.pre_process(f) for f in frames]
+    x = torch.cat([p[0] for p in pre]).float()
+    x = (x / 255.0 - fused.mean) / fused.std
+    with torch.inference_mode():
+        heads = [det.model(x) for det in (unfused, fused)]
+        rows = [det.process(x).cpu().numpy() for det in (unfused, fused)]
+    err = head_rel_err(*heads)
+    l2 = max(((a - heads[1][k]).norm() / heads[1][k].norm()).item()
+             for k, a in heads[0].items())
+    n_conf = unmatched = 0
+    worst_px = worst_score = 0.0
+    for i, (_, meta) in enumerate(pre):
+        a, b = (fused.post_process(r[i:i + 1], meta)[1] for r in rows)
+        n, u, px, ds = match_rows(a, b, fused.cfg.test.vis_thresh)
+        n_conf += n
+        unmatched += u
+        worst_px, worst_score = max(worst_px, px), max(worst_score, ds)
+    say(f"  unfused om (dcn_fused_om false: om conv in bf16, then K2) vs "
+        f"fused (K1), {EXPORT_BATCH} frames: heads rel err {err:.3e}, "
+        f"relative L2 {l2:.3e} (limits {TOL_UNFUSED}); {n_conf} rows "
+        f"score >= {fused.cfg.test.vis_thresh} on either side, {unmatched} "
+        f"unmatched, worst center {worst_px:.3f} px, worst score diff "
+        f"{worst_score:.4f}; {card}")
+    check(err <= TOL_UNFUSED[0] and l2 <= TOL_UNFUSED[1],
+          f"unfused om: heads rel err {err}, relative L2 {l2}")
+    check(n_conf >= EXPORT_BATCH, f"unfused om: only {n_conf} rows")
+    check(unmatched == 0, f"unfused om: {unmatched} of {n_conf} rows "
+          "without a match in the fused forward's")
+
+
+def ablation_phase(state_dict, card: str) -> dict:
+    """``tools/ablate_step`` at batch TRAIN_BATCH (every row's wall and
+    busy ms finite and above 0, its launches per call as ABL_LAUNCHES)
+    and ``tools/bench_input_pipeline`` (rates finite and above 0, each
+    wire's bytes per image its tensors' arithmetic, the card's training
+    rate); the unfused-om forward against the fused one.  Returns the K2
+    and backward launches by site of the two tools' runs."""
+    import math
+
+    import torch
+
+    from centerpose_tpu_torch.ops import dcn_cuda as dc
+    from centerpose_tpu_torch.tools import ablate_step, bench_input_pipeline
+
+    dc.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = ablate_step.run(TRAIN_BATCH, ABL_ITERS, str(NPZ), "cuda")
+    t1 = time.perf_counter()
+    res = bench_input_pipeline.run(ABL_IMAGES, ABL_SAMPLES, "cuda")
+    torch.cuda.synchronize()
+    say(f"  ablate_step {t1 - t0:.2f} s, bench_input_pipeline "
+        f"{time.perf_counter() - t1:.2f} s")
+    launches = {"dcn_v2": dict(dc.dcn_v2.launches_by_site),
+                "dcn_v2_backward": dict(dc.dcn_v2_backward.launches_by_site)}
+    say("  ablation " + json.dumps(rows))
+    say("  input pipeline " + json.dumps(res))
+    for name, want in ABL_LAUNCHES.items():
+        for key in ("ms", "busy_ms"):
+            v = rows[f"{name}_{key}"]
+            check(math.isfinite(v) and v > 0, f"ablation {name}_{key}: {v}")
+        got = rows[f"{name}_launches"]
+        check((got["k1"], got["k2"], got["backward"]) == want,
+              f"ablation {name}: launches per call {got}, not {want}")
+    for name in ablate_step.DERIVED:
+        check(all(math.isfinite(rows[f"{name}_{k}"])
+                  for k in ("ms", "busy_ms")), f"ablation {name}")
+    rates = [res["raw_render_img_s"], res["encode_only_native_img_s"],
+             res["encode_only_python_img_s"],
+             *(r["loader_img_s"] for r in res["loader_sweep"]),
+             *(res[f"prefetch_{w}"]["prefetch_img_s"]
+               for w in ("float32", "compact")),
+             res["budget"]["card_train_img_s"]]
+    check(all(math.isfinite(v) and v > 0 for v in rates),
+          f"input pipeline rates {rates}")
+    for wire in ("float32", "compact"):
+        cfg = bench_input_pipeline.pipeline_cfg()
+        want = wire_bytes_per_image(cfg, wire)
+        got = res[f"prefetch_{wire}"]["bytes_per_image"]
+        check(got == want, f"input pipeline {wire}: {got} bytes per image, "
+              f"its tensors' arithmetic {want}")
+    check(rows["card"] == card and res["card"] == card,
+          f"ablation card {rows['card']}, {res['card']}")
+    unfused_om_check(state_dict, card)
+    b = res["budget"]
+    say(f"  ablation at batch {TRAIN_BATCH} (ms wall / busy per call): "
+        + "; ".join(f"{n} {rows[f'{n}_ms']:.3f} / {rows[f'{n}_busy_ms']:.3f}"
+                    for n in (*ABL_LAUNCHES, *ablate_step.DERIVED))
+        + f"; loader best {b['host_rate_img_s']:.2f} images/s against the "
+        f"card's training {b['card_train_img_s']:.2f} (feeds "
+        f"{b['host_feeds_n_cards']:.2f} cards); {card}")
+    return launches
+
+
+def only_ablation(card: str) -> int:
+    """``--only ablation``: the build and the ablation phase alone (no
+    result line)."""
+    from centerpose_tpu_torch.weights import state_dict_from_npz
+
+    phase("build CUDA library", build)
+    state_dict = state_dict_from_npz(str(NPZ))
+    phase("ablation", lambda: ablation_phase(state_dict, card))
+    say(card)
+    return 0
+
+
 def only_offsets(card: str) -> int:
     """``--only offsets``: the build and the offsets phase alone (no
     result line)."""
@@ -3196,6 +3460,8 @@ def main() -> int:
         return only_spatial(card)
     if sys.argv[1:] == ["--only", "offsets"]:
         return only_offsets(card)
+    if sys.argv[1:] == ["--only", "ablation"]:
+        return only_ablation(card)
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     phase("build CUDA library", build)
     entries = phase("kernel check", kernel_check)
@@ -3216,8 +3482,8 @@ def main() -> int:
     del det
     demo_launches = phase("demo (main path)", lambda: demo(state_dict, card))
     t_new = time.perf_counter()
-    export_launches = phase("export (main path)",
-                            lambda: export_phase(state_dict, card))
+    export_launches, export_k2 = phase(
+        "export (main path)", lambda: export_phase(state_dict, card))
     t_new = time.perf_counter() - t_new
     train_launches, trainer, fixed = phase("training (main path)",
                                            lambda: training(state_dict))
@@ -3237,6 +3503,7 @@ def main() -> int:
     sp_launches = phase("spatial sharding (main path)",
                         lambda: spatial_phase(card))
     oh_launches = phase("offsets (main path)", lambda: offsets_phase(card))
+    abl_launches = phase("ablation", lambda: ablation_phase(state_dict, card))
     for site, entry in entries.items():
         sp_site = site[:3]  # (Cin, Cout, W): a shard's rows are fewer
         check(launches.get(site, 0) > 0 and demo_launches.get(site, 0) > 0
@@ -3247,12 +3514,21 @@ def main() -> int:
         entry["launches"] = (launches[site] + demo_launches[site]
                              + export_launches[site] + sp_launches[sp_site]
                              + oh_launches[sp_site])
+    # K2's launches at the 512x512 sites: the training and data-parallel
+    # main paths, the xla export, the ablation's unfused-om forward and
+    # training rows and the input pipeline's training rate; the backward's:
+    # the training and data-parallel paths and the ablation's
+    k2_more = {"dcn_v2": export_k2, "dcn_v2_backward": {}}
     for (kernel, site), entry in train_entries.items():
         check(train_launches[kernel].get(site, 0) > 0
-              and dp_launches[kernel].get(site, 0) > 0,
+              and dp_launches[kernel].get(site, 0) > 0
+              and abl_launches[kernel].get(site, 0) > 0
+              and (kernel != "dcn_v2" or export_k2.get(site, 0) > 0),
               f"{kernel} never launched at site {site}")
         entry["launches"] = (train_launches[kernel][site]
-                             + dp_launches[kernel][site])
+                             + dp_launches[kernel][site]
+                             + abl_launches[kernel][site]
+                             + k2_more[kernel].get(site, 0))
     kernels = list(entries.values()) + list(train_entries.values())
     say(f"[phase] total {time.perf_counter() - t_all:.2f} s")
     say(json.dumps({"kernels": kernels}))

@@ -25,8 +25,8 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 # the demo, the debugger, the importer check, the export and the bench
-# tools, data parallelism, spatial sharding and the scaling bench import
-# without cv2 too
+# tools, data parallelism, spatial sharding, the scaling bench and the
+# step-ablation and input-pipeline tools import without cv2 too
 assert {"centerpose_tpu_torch.utils.debugger", "centerpose_tpu_torch.tools.demo",
         "centerpose_tpu_torch.tools.check_importer",
         "centerpose_tpu_torch.tools.export",
@@ -34,7 +34,9 @@ assert {"centerpose_tpu_torch.utils.debugger", "centerpose_tpu_torch.tools.demo"
         "centerpose_tpu_torch.tools.bench_eval",
         "centerpose_tpu_torch.parallel", "centerpose_tpu_torch.parallel.mesh",
         "centerpose_tpu_torch.parallel.spatial",
-        "centerpose_tpu_torch.tools.bench_scaling"} <= set(names)
+        "centerpose_tpu_torch.tools.bench_scaling",
+        "centerpose_tpu_torch.tools.ablate_step",
+        "centerpose_tpu_torch.tools.bench_input_pipeline"} <= set(names)
 import chip_smoke  # importing must not run main()
 from centerpose_tpu_torch.config import default_config, update_config
 from centerpose_tpu_torch.inference.detector import Detector
