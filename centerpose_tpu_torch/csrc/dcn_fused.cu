@@ -83,13 +83,41 @@
 //   (fence.proxy.async waits for a thread's copies in flight) have none,
 //   did not make it faster.
 //
-// float32 keeps the CUDA-core kernels of the first port (full f32, no
-// TF32), two launches per K1 call:
-//   1. dcn_om_f32_kernel: the 27-channel om conv with f32 FMA, writing the
-//      raw offsets and the sigmoid-ed mask to om [B*H*W, 27];
-//   2. dcn_gemm_f32_kernel: an implicit GEMM over M = pixels, N = Cout,
-//      K = 9*Cin, a block per 64 x 64 output tile, the four corners
-//      computed once per tap and the samples gathered into shared memory.
+// float32 (dcn_gemm_f32), one launch per K1 or K2 call, the same frame
+// with the products on the CUDA cores (full f32 FMA: a single TF32 pass
+// would not keep float32's accuracy):
+//   * A block owns one 64-pixel tile and up to 256 columns (N = Cout
+//     padded to 64k, k <= 4; a wider Cout takes column tiles, grid.y, each
+//     gathering the tile again).  A chunk is (tap, 32 channels): one
+//     128-byte row per corner, read by 8 producer lanes with 16-byte loads
+//     (4 channels a lane; twice bf16's requests per channel), so each
+//     sample is still gathered once per column tile.
+//   * Warp specialisation as in bf16: warpgroup 1 builds the tap's corner
+//     table (tap_geo), gathers, sums the four corners in f32 in corner
+//     order times the mask (the expression pass A of the backward
+//     rebuilds) and stores the samples pixel-major, A [64 px][32 ch] with a
+//     row stride of 36 floats; the weight rows B [32 ch][N] arrive in the
+//     same stage by cp.async, tracked by the stage's full mbarrier
+//     (cp.async.mbarrier.arrive), so a producer never waits for its own
+//     copies.  Warpgroup 0 consumes: each thread owns 8 pixels x 4 columns
+//     of each 64-column sub-tile (8 x 4N/64 outputs, up to 8 x 16) in
+//     registers and runs FFMA from float4 reads of A and B.  A ring of 2-4
+//     stages with full/empty mbarriers overlaps the gather of chunk i+1
+//     with the product of chunk i.
+//   * K1's om conv is the block's first phase on the same ring: x at the
+//     integer tap and the omw rows [32][27] as they lie in memory, both by
+//     cp.async (an item's copies complete its stage's barrier), 4 x 4
+//     outputs a consumer thread; om stays in shared memory as f32 for the
+//     product and is written once for the backward.
+//   * Small sites split the 9*Cin reduction over a cluster of at most 8
+//     blocks, partials summed through distributed shared memory in rank
+//     order, as in bf16: no float atomics, the same bits on every call.
+//     ops/dcn_cuda.forward_plan gives tile, split, stages and shared
+//     memory; check_plan_f32 checks them.
+//   Why FFMA and not 3xTF32 on wgmma: the f32 products are 67 TFLOP/s of
+//   FMA against the gather's requests, twice bf16's per sample; the
+//   tensor-core route (three TF32 products a step) is taken only if the
+//   card shows the FMA, not the gather, setting the time.
 //
 // Layouts follow the JAX op: x NHWC [B,H,W,Cin], weight [3,3,Cin,Cout]
 // (= row-major [9*Cin, Cout]), omw [3,3,Cin,27], y NHWC [B,H,W,Cout].
@@ -109,215 +137,10 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kOm = 27;          // offset/mask channels: 18 offsets + 9 mask
-// float32 kernels
-constexpr int kOmPix = 32;       // pixels per om block
-constexpr int kOmCk = 32;        // input channels per om slice
-constexpr int kBM = 64;          // GEMM tile: pixels
-constexpr int kBN = 64;          // GEMM tile: output channels
-constexpr int kBK = 32;          // GEMM tile: input channels per slice
-constexpr int kThreads = 256;
 
 // om[p, 0:18] = offsets, om[p, 18:27] = sigmoid(mask logits), p = pixel.
 __device__ __forceinline__ float om_out(int o, float v) {
   return o >= 18 ? 1.f / (1.f + expf(-v)) : v;
-}
-
-// float32: the om conv on the CUDA cores, f32 FMA.
-__global__ void __launch_bounds__(kThreads)
-dcn_om_f32_kernel(const float* __restrict__ x, const float* __restrict__ omw,
-                  const float* __restrict__ omb, float* __restrict__ om,
-                  int B, int H, int W, int Cin) {
-  __shared__ float xs[kOmPix][kOmCk + 1];
-  __shared__ float ws[kOmCk][kOm + 1];
-  const int tid = threadIdx.x;
-  const long long npix = (long long)B * H * W;
-  const long long p0 = (long long)blockIdx.x * kOmPix;
-  const int lp = tid % kOmPix;   // this thread's pixel in the tile
-  const int og = tid / kOmPix;   // its outputs: og, og + 8, og + 16, og + 24
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-
-  for (int k = 0; k < 9; ++k) {
-    const int ky = k / 3 - 1, kx = k % 3 - 1;
-    for (int c0 = 0; c0 < Cin; c0 += kOmCk) {
-      for (int e = tid; e < kOmPix * kOmCk; e += kThreads) {
-        const int pp = e / kOmCk, cc = e % kOmCk;
-        const long long p = p0 + pp;
-        float v = 0.f;
-        if (p < npix && c0 + cc < Cin) {
-          const int px = (int)(p % W);
-          const long long t = p / W;
-          const int py = (int)(t % H);
-          const long long b = t / H;
-          const int sy = py + ky, sx = px + kx;
-          if (sy >= 0 && sy < H && sx >= 0 && sx < W)
-            v = x[((b * H + sy) * W + sx) * Cin + c0 + cc];
-        }
-        xs[pp][cc] = v;
-      }
-      for (int e = tid; e < kOmCk * kOm; e += kThreads) {
-        const int cc = e / kOm, o = e % kOm;
-        ws[cc][o] = (c0 + cc < Cin)
-            ? omw[((long long)k * Cin + c0 + cc) * kOm + o] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int cc = 0; cc < kOmCk; ++cc) {
-        const float xv = xs[lp][cc];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int o = og + 8 * j;
-          if (o < kOm) acc[j] = fmaf(xv, ws[cc][o], acc[j]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-  const long long p = p0 + lp;
-  if (p < npix) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = og + 8 * j;
-      if (o < kOm) om[p * kOm + o] = om_out(o, acc[j] + omb[o]);
-    }
-  }
-}
-
-// y[p, n] = bias[n] + sum_{k, c} W[k, c, n] * sample_k(p, c), where
-// sample_k(p, c) = m_k(p) * sum over the 4 bilinear corners q of
-// w_q * x[corner_q, c].  Offsets are read at off[p * ld_off + 2k (+1)],
-// the mask at msk[p * ld_msk + k], both of type TO: f32 from K1's om
-// scratch, the input type for K2; max_dy < 0 disables the clamp.
-
-// The four bilinear corners of tap k for the tile's pixels m0 .. m0+kBM-1:
-// element offset of each corner's channel row (-1 outside the image) and
-// its weight times the mask.  Threads 0 .. kBM-1 each take one pixel.
-template <typename TO>
-__device__ __forceinline__ void tap_corners(
-    int k, long long m0, long long npix, const TO* __restrict__ off,
-    int ld_off, const TO* __restrict__ msk, int ld_msk, int H, int W,
-    int Cin, float max_dy, long long (*cidx)[kBM], float (*cwt)[kBM]) {
-  const int tid = threadIdx.x;
-  if (tid >= kBM) return;
-  const long long m = m0 + tid;
-  long long idx[4] = {-1, -1, -1, -1};
-  float wq[4] = {0.f, 0.f, 0.f, 0.f};
-  if (m < npix) {
-    const int px = (int)(m % W);
-    const long long t = m / W;
-    const int py = (int)(t % H);
-    const long long b = t / H;
-    float dy = to_f(off[m * ld_off + 2 * k]);
-    const float dx = to_f(off[m * ld_off + 2 * k + 1]);
-    if (max_dy >= 0.f) dy = fminf(fmaxf(dy, -max_dy), max_dy);
-    const float mk = to_f(msk[m * ld_msk + k]);
-    const float sy = (float)(py + k / 3 - 1) + dy;
-    const float sx = (float)(px + k % 3 - 1) + dx;
-    const float y0 = floorf(sy), x0 = floorf(sx);
-    const float wy1 = sy - y0, wx1 = sx - x0;
-    const float wy[2] = {1.f - wy1, wy1};
-    const float wx[2] = {1.f - wx1, wx1};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float yc = y0 + (float)(q / 2), xc = x0 + (float)(q % 2);
-      if (yc >= 0.f && yc <= (float)(H - 1) && xc >= 0.f &&
-          xc <= (float)(W - 1)) {
-        idx[q] = ((b * H + (long long)yc) * W + (long long)xc) * Cin;
-        wq[q] = wy[q / 2] * wx[q % 2] * mk;
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    cidx[q][tid] = idx[q];
-    cwt[q][tid] = wq[q];
-  }
-}
-
-// The modulated sample of pixel mm of the tile at channel c (c < Cin).
-template <typename T>
-__device__ __forceinline__ float gather_sample(
-    const T* __restrict__ x, long long (*cidx)[kBM], float (*cwt)[kBM],
-    int mm, int c) {
-  float v = 0.f;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const long long i = cidx[q][mm];
-    if (i >= 0) v += cwt[q][mm] * to_f(x[i + c]);
-  }
-  return v;
-}
-
-// float32: the product on the CUDA cores, f32 FMA, 4x4 outputs a thread.
-__global__ void __launch_bounds__(kThreads)
-dcn_gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ off,
-                    int ld_off, const float* __restrict__ msk, int ld_msk,
-                    const float* __restrict__ wt,
-                    const float* __restrict__ bias, float* __restrict__ y,
-                    int B, int H, int W, int Cin, int Cout, float max_dy) {
-  __shared__ float As[kBK][kBM + 4];
-  __shared__ float Bs[kBK][kBN + 4];
-  __shared__ long long cidx[4][kBM];
-  __shared__ float cwt[4][kBM];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const long long npix = (long long)B * H * W;
-  const long long m0 = (long long)blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k = 0; k < 9; ++k) {
-    tap_corners(k, m0, npix, off, ld_off, msk, ld_msk, H, W, Cin, max_dy,
-                cidx, cwt);
-    __syncthreads();
-    for (int c0 = 0; c0 < Cin; c0 += kBK) {
-#pragma unroll
-      for (int r = 0; r < (kBM * kBK) / kThreads; ++r) {
-        const int e = tid + r * kThreads;
-        const int kk = e % kBK, mm = e / kBK;
-        As[kk][mm] = (c0 + kk < Cin)
-            ? gather_sample(x, cidx, cwt, mm, c0 + kk) : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < (kBK * kBN) / kThreads; ++r) {
-        const int e = tid + r * kThreads;
-        const int nn = e % kBN, kk = e / kBN;
-        const int c = c0 + kk, n = n0 + nn;
-        Bs[kk][nn] = (c < Cin && n < Cout)
-            ? wt[((long long)k * Cin + c) * Cout + n] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        float a[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty * 4 + i;
-    if (m >= npix) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < Cout) y[m * Cout + n] = acc[i][j] + bias[n];
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -901,6 +724,483 @@ dcn_gemm_wgmma(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32: one block per 64-pixel tile and up to 256 columns, FFMA on the
+// CUDA cores (see the note).
+// ---------------------------------------------------------------------------
+
+constexpr int kFC = 32;       // f32 input channels per chunk: a 128-byte row
+constexpr int kLDA = 36;      // row stride of the pixel-major A tile (floats)
+constexpr int kColMax = 256;  // columns of one block; more take column tiles
+
+// Shared memory of a float32 block, in bytes from the dynamic base (the
+// host's plan computes the same; the entry point checks the total).  A ring
+// of `stages` stages, each an A tile [64 px][kLDA] f32 (the samples; for an
+// om item, x at the integer tap) and a B tile [32 ch][kp] f32 (the weight
+// rows; for an om item, the omw rows [32][27] as they lie in memory); the
+// full and empty mbarriers; two corner tables [4][64] (element offsets,
+// then weights); the om tile [64][27] f32; the om partial [64][32] f32.
+// After the product a split block's f32 partial [64][kp + 4] reuses the
+// ring.
+struct F32Layout {
+  int b_off, stage, bars, tab, om, omp, bytes;
+  __host__ __device__ F32Layout(int kp, int stages) {
+    b_off = kTM * kLDA * 4;
+    stage = b_off + kFC * kp * 4;
+    bars = stages * stage;
+    tab = bars + align128(16 * stages);
+    om = tab + 2 * 4 * kTM * (8 + 4);
+    omp = om + kTM * kOm * 4;
+    bytes = omp + kTM * kOmN * 4;
+  }
+};
+
+// An arrival on b once every cp.async this thread has issued has landed.
+// NOINC: that arrival is the thread's own; else it only holds the phase
+// open until the copies land, and the thread arrives as well.
+template <bool NOINC>
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* b) {
+  if constexpr (NOINC)
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                     "r"(smem_u32(b))
+                 : "memory");
+  else
+    asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                     smem_u32(b))
+                 : "memory");
+}
+
+// the consumers' own barrier (named barrier 2, warpgroup 0)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 2, 128;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float f4_at(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// Grid: (split * tiles, column tiles); block (b, c) takes pixel tile
+// b / split, cluster rank b % split and columns c * kp .. c * kp + kp - 1;
+// the rank owns the (tap, chunk) items [rank * nck / split, (rank + 1) *
+// nck / split) of the sequence j -> tap j / nslice, channels (j % nslice)
+// * 32 .. + 31.  FUSED: K1 (om computed here from x, omw, omb and written
+// to om by column tile 0); else K2 (offsets and mask read from off, msk).
+template <int NT, bool FUSED>
+__global__ void __launch_bounds__(kWThreads, NT <= 2 ? 2 : 1)
+dcn_gemm_f32(const float* __restrict__ x, const float* __restrict__ omw,
+             const float* __restrict__ omb, const float* __restrict__ off,
+             const float* __restrict__ msk, const float* __restrict__ wt,
+             const float* __restrict__ bias, float* __restrict__ om,
+             float* __restrict__ y, int B, int H, int W, int Cin, int Cout,
+             float max_dy, int split, int stages) {
+  constexpr int kp = NT * 64;  // N: this block's columns, padded
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float s_omb[kOm];  // K1: the om bias, once
+  const F32Layout L(kp, stages);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + stages;
+  long long* tab_idx = reinterpret_cast<long long*>(smem + L.tab);
+  float* tab_w = reinterpret_cast<float*>(smem + L.tab + 2 * 4 * kTM * 8);
+  float* omt = reinterpret_cast<float*>(smem + L.om);
+  float* omp = reinterpret_cast<float*>(smem + L.omp);
+  auto stage_a = [&](int s) {
+    return reinterpret_cast<float*>(smem + s * L.stage);
+  };
+  auto stage_b = [&](int s) {
+    return reinterpret_cast<float*>(smem + s * L.stage + L.b_off);
+  };
+
+  const int tid = threadIdx.x;
+  const int npix = B * H * W;
+  const int rank = blockIdx.x % split;
+  const int m0 = (blockIdx.x / split) * kTM;
+  const int n0 = blockIdx.y * kp;
+  const int ncol = min(kp, Cout - n0);  // this block's columns
+  const int nslice = cdiv(Cin, kFC);
+  const int nck = 9 * nslice;
+  const int j0 = rank * nck / split, j1 = (rank + 1) * nck / split;
+  const bool vec =
+      (Cin & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool wvec =
+      (Cout & 3) == 0 && (reinterpret_cast<uintptr_t>(wt) & 15) == 0;
+  const bool producer = tid >= kWThreads - kProd;
+  const int pt = tid - (kWThreads - kProd);  // producer thread
+  const int lane = tid & 31, pw = pt >> 5;
+  // a producer lane: pixels 4 pw + pq + 16 i (i < 4) of the tile, channels
+  // 4 g .. 4 g + 3 of the chunk: 8 lanes read one pixel's corner row, all
+  // 128 bytes of the chunk (one L2 request per row)
+  const int pq = lane >> 3, g = lane & 7;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, kProd);
+      mbar_init(empty + s, kWThreads - kProd);
+    }
+    mbar_init_fence();
+  }
+  if constexpr (FUSED) {
+    if (tid < kOm) s_omb[tid] = omb[tid];
+  } else {  // K2: the tile's offsets and mask
+    for (int e = tid; e < kTM * kOm; e += kWThreads) {
+      const int p = e / kOm, o = e - p * kOm, m = m0 + p;
+      float v = 0.f;
+      if (m < npix)
+        v = o < 18 ? off[(long long)m * 18 + o]
+                   : msk[(long long)m * 9 + o - 18];
+      omt[e] = v;
+    }
+  }
+  __syncthreads();
+
+  // the ring: items go through it in one order for both roles; item i
+  // uses stage i % stages in phase i / stages
+  int it = 0;      // consumer: items taken
+  int issued = 0;  // producer: stages acquired
+  auto acquire = [&]() {  // producer: the next stage, once empty
+    const int s = issued % stages;
+    mbar_wait(empty + s, ((issued / stages) & 1) ^ 1);
+    ++issued;
+    return s;
+  };
+  auto take = [&]() {  // consumer: the next stage, once full
+    const int s = it % stages;
+    mbar_wait(full + s, (it / stages) & 1);
+    ++it;
+    return s;
+  };
+
+  if constexpr (FUSED) {
+    // --- phase 1: the om conv, its partial over this rank's items ---------
+    if (producer) {
+      const bool ovec =
+          vec && (reinterpret_cast<uintptr_t>(omw) & 15) == 0;
+      int pb[4], py[4], px[4];
+      bool pin[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = m0 + pw * 4 + pq + 16 * i;
+        const int t = m / W;
+        pin[i] = m < npix;
+        px[i] = m - t * W;
+        py[i] = t % H;
+        pb[i] = t / H;
+      }
+      for (int j = j0; j < j1; ++j) {
+        const int k = j / nslice, c0 = (j - k * nslice) * kFC;
+        const int s = acquire();
+        float* A = stage_a(s);
+        float* Bw = stage_b(s);
+        // A = x at the integer tap, zero outside the image and past Cin
+        const int c = c0 + 4 * g;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int p = pw * 4 + pq + 16 * i;
+          const int sy = py[i] + k / 3 - 1, sx = px[i] + k % 3 - 1;
+          const bool in =
+              pin[i] && sy >= 0 && sy < H && sx >= 0 && sx < W;
+          const long long row =
+              in ? (((long long)pb[i] * H + sy) * W + sx) * Cin : 0;
+          float* d = A + p * kLDA + 4 * g;
+          if (ovec) {
+            const bool ok = in && c < Cin;
+            cp_async16_zfill(d, ok ? x + row + c : x, ok ? 16 : 0);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              d[e] = (in && c + e < Cin) ? x[row + c + e] : 0.f;
+          }
+        }
+        // B = the item's omw rows, contiguous [rows][27], zero past Cin
+        const int n = min(kFC, Cin - c0) * kOm;
+        const float* src = omw + ((long long)k * Cin + c0) * kOm;
+        if (ovec) {  // n: a multiple of 4 (Cin % 4 == 0)
+          for (int e = pt; e < kFC * kOm / 4; e += kProd) {
+            const bool ok = 4 * e < n;
+            cp_async16_zfill(Bw + 4 * e, ok ? src + 4 * e : omw,
+                             ok ? 16 : 0);
+          }
+          mbar_arrive_cp_async<true>(full + s);  // once the copies land
+        } else {
+          for (int e = pt; e < kFC * kOm; e += kProd)
+            Bw[e] = e < n ? src[e] : 0.f;
+          mbar_arrive(full + s);
+        }
+      }
+      cp_async_wait_all();
+    } else {
+      // 4 x 4 outputs a thread: pixels tr + 16 i, om columns tc + 8 jj
+      // (columns past 26 read column 26 and are never kept)
+      const int tr = tid >> 3, tc = tid & 7;
+      int col[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) col[jj] = min(tc + 8 * jj, kOm - 1);
+      float oacc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) oacc[i][jj] = 0.f;
+      for (int j = j0; j < j1; ++j) {
+        const int s = take();
+        const float* A = stage_a(s);
+        const float* Bw = stage_b(s);
+#pragma unroll 2
+        for (int kq = 0; kq < kFC / 4; ++kq) {
+          float4 a[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            a[i] = *reinterpret_cast<const float4*>(
+                A + (tr + 16 * i) * kLDA + 4 * kq);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float* brow = Bw + (4 * kq + e) * kOm;
+            float bv[4];
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) bv[jj] = brow[col[jj]];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float av = f4_at(a[i], e);
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj)
+                oacc[i][jj] = fmaf(av, bv[jj], oacc[i][jj]);
+            }
+          }
+        }
+        mbar_arrive(empty + s);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          omp[(tr + 16 * i) * kOmN + tc + 8 * jj] = oacc[i][jj];
+    }
+    cluster_or_block_sync(split);
+    // om = the ranks' partials summed in rank order, + omb; the mask
+    // through the sigmoid.  Every rank computes the same tile.
+    for (int e = tid; e < kTM * kOm; e += kWThreads) {
+      const int p = e / kOm, o = e - p * kOm;
+      float part[kMaxSplit];
+#pragma unroll
+      for (int r = 0; r < kMaxSplit; ++r)  // all loads in flight first
+        part[r] = r < split ? rank_smem(omp, r, split)[p * kOmN + o] : 0.f;
+      float v = 0.f;
+#pragma unroll
+      for (int r = 0; r < kMaxSplit; ++r)
+        if (r < split) v += part[r];
+      v = om_out(o, v + s_omb[o]);
+      omt[e] = v;
+      if (rank == 0 && blockIdx.y == 0 && m0 + p < npix)
+        om[(long long)(m0 + p) * kOm + o] = v;
+    }
+    __syncthreads();
+  }
+
+  // --- phase 2: the product over this rank's items -------------------------
+  if (producer) {
+    int tap = -1, buf = 1;
+    for (int j = j0; j < j1; ++j) {
+      const int k = j / nslice, c0 = (j - k * nslice) * kFC;
+      if (k != tap) {  // the tile's corners at tap k, once per tap (two
+        tap = k;       // tables: the other may still be read)
+        buf ^= 1;
+        if (pt < kTM) {
+          const int m = m0 + pt;
+          long long* ti = tab_idx + buf * 4 * kTM;
+          float* tw = tab_w + buf * 4 * kTM;
+          if (m < npix) {
+            const float* o = omt + pt * kOm;
+            const TapGeo geo = tap_geo(m, k, o[2 * k], o[2 * k + 1],
+                                       o[18 + k], H, W, Cin, max_dy, 1.f);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              // outside: a valid row with weight 0, as the backward has it
+              const bool in = geo.idx[q] >= 0;
+              ti[q * kTM + pt] = in ? geo.idx[q] : 0;
+              tw[q * kTM + pt] = in ? geo.wq[q] * geo.mk : 0.f;
+            }
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              ti[q * kTM + pt] = 0;
+              tw[q * kTM + pt] = 0.f;
+            }
+          }
+        }
+        producer_sync();
+      }
+      const int s = acquire();
+      float* A = stage_a(s);
+      float* Bt = stage_b(s);
+      // B (kk, n) = W[k * Cin + c0 + kk, n0 + n], zero past Cin and Cout
+      const float* wk = wt + ((long long)k * Cin + c0) * Cout + n0;
+      for (int e = pt; e < kFC * (kp / 4); e += kProd) {
+        const int kk = e / (kp / 4), n = (e - kk * (kp / 4)) * 4;
+        float* d = Bt + kk * kp + n;
+        const bool row_in = c0 + kk < Cin;
+        if (wvec) {  // ncol: a multiple of 4 (Cout % 4 == 0)
+          const bool ok = row_in && n < ncol;
+          cp_async16_zfill(d, ok ? wk + (long long)kk * Cout + n : wt,
+                           ok ? 16 : 0);
+        } else {
+#pragma unroll
+          for (int e2 = 0; e2 < 4; ++e2)
+            d[e2] = (row_in && n + e2 < ncol)
+                        ? wk[(long long)kk * Cout + n + e2] : 0.f;
+        }
+      }
+      if (wvec) mbar_arrive_cp_async<false>(full + s);  // B holds the stage
+      // A (p, c) = sum over the corners q, in order, of w_q . x[idx_q + c]
+      const long long* ti = tab_idx + buf * 4 * kTM;
+      const float* tw = tab_w + buf * 4 * kTM;
+      const int c = c0 + 4 * g;
+      if (vec) {
+        float4 raw[4][4];  // [pixel][corner]
+        float wq[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int p = pw * 4 + pq + 16 * i;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const long long idx = ti[q * kTM + p];
+            wq[i][q] = tw[q * kTM + p];
+            raw[i][q] = c < Cin
+                            ? *reinterpret_cast<const float4*>(x + idx + c)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            v[0] = fmaf(wq[i][q], raw[i][q].x, v[0]);
+            v[1] = fmaf(wq[i][q], raw[i][q].y, v[1]);
+            v[2] = fmaf(wq[i][q], raw[i][q].z, v[2]);
+            v[3] = fmaf(wq[i][q], raw[i][q].w, v[3]);
+          }
+          *reinterpret_cast<float4*>(A + (pw * 4 + pq + 16 * i) * kLDA +
+                                     4 * g) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        }
+      } else {  // Cin % 4 != 0 (or an unaligned x): element loads
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int p = pw * 4 + pq + 16 * i;
+          float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const long long idx = ti[q * kTM + p];
+            const float w = tw[q * kTM + p];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (c + e < Cin) v[e] = fmaf(w, x[idx + c + e], v[e]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) A[p * kLDA + 4 * g + e] = v[e];
+        }
+      }
+      mbar_arrive(full + s);
+    }
+    cp_async_wait_all();
+  } else {
+    // 8 x 4 outputs a thread in each 64-column sub-tile t: pixels tr + 8 i,
+    // columns 64 t + 4 tc .. + 3 (a warp reads two A rows, 36 floats
+    // apart, and 16 neighbouring float4 of a B row: no bank conflict)
+    const int tr = tid >> 4, tc = tid & 15;
+    float acc[8][4 * NT];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int v = 0; v < 4 * NT; ++v) acc[i][v] = 0.f;
+    for (int j = j0; j < j1; ++j) {
+      const int s = take();
+      const float* A = stage_a(s);
+      const float* Bt = stage_b(s);
+#pragma unroll 2
+      for (int kq = 0; kq < kFC / 4; ++kq) {
+        float4 a[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          a[i] = *reinterpret_cast<const float4*>(A + (tr + 8 * i) * kLDA +
+                                                  4 * kq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* brow = Bt + (4 * kq + e) * kp + 4 * tc;
+#pragma unroll
+          for (int t = 0; t < NT; ++t) {
+            const float4 b = *reinterpret_cast<const float4*>(brow + 64 * t);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float av = f4_at(a[i], e);
+              acc[i][4 * t] = fmaf(av, b.x, acc[i][4 * t]);
+              acc[i][4 * t + 1] = fmaf(av, b.y, acc[i][4 * t + 1]);
+              acc[i][4 * t + 2] = fmaf(av, b.z, acc[i][4 * t + 2]);
+              acc[i][4 * t + 3] = fmaf(av, b.w, acc[i][4 * t + 3]);
+            }
+          }
+        }
+      }
+      mbar_arrive(empty + s);
+    }
+    if (split == 1) {  // y = acc + bias
+      const bool cvec =
+          (Cout & 3) == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int m = m0 + tr + 8 * i;
+        if (m >= npix) continue;
+        float* yr = y + (long long)m * Cout + n0;
+        const float* br = bias + n0;
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const int n = 64 * t + 4 * tc;
+          if (cvec && n < ncol) {
+            *reinterpret_cast<float4*>(yr + n) = make_float4(
+                acc[i][4 * t] + br[n], acc[i][4 * t + 1] + br[n + 1],
+                acc[i][4 * t + 2] + br[n + 2],
+                acc[i][4 * t + 3] + br[n + 3]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (n + e < ncol) yr[n + e] = acc[i][4 * t + e] + br[n + e];
+          }
+        }
+      }
+    } else {  // the partial into the ring, once no consumer reads it
+      consumer_sync();
+      float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+          *reinterpret_cast<float4*>(part + (tr + 8 * i) * (kp + 4) +
+                                     64 * t + 4 * tc) =
+              make_float4(acc[i][4 * t], acc[i][4 * t + 1],
+                          acc[i][4 * t + 2], acc[i][4 * t + 3]);
+    }
+  }
+  if (split > 1) {
+    // rank r: rows r * 64 / split .. of the tile, the partials summed in
+    // rank order, + bias
+    cg::this_cluster().sync();
+    float* part = reinterpret_cast<float*>(smem);
+    const int r0 = rank * kTM / split, r1 = (rank + 1) * kTM / split;
+    for (int e = tid; e < (r1 - r0) * ncol; e += kWThreads) {
+      const int r = r0 + e / ncol, n = e % ncol, m = m0 + r;
+      if (m >= npix) continue;
+      float v[kMaxSplit];
+#pragma unroll
+      for (int q = 0; q < kMaxSplit; ++q)  // all loads in flight first
+        v[q] = q < split ? rank_smem(part, q, split)[r * (kp + 4) + n] : 0.f;
+      float sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < kMaxSplit; ++q)
+        if (q < split) sum += v[q];
+      y[(long long)m * Cout + n0 + n] = sum + bias[n0 + n];
+    }
+    cg::this_cluster().sync();  // no rank leaves while others read it
+  }
+}
+
 unsigned blocks(long long n, int per_block) {
   return (unsigned)((n + per_block - 1) / per_block);
 }
@@ -908,38 +1208,6 @@ unsigned blocks(long long n, int per_block) {
 // ---------------------------------------------------------------------------
 // Host: launches.
 // ---------------------------------------------------------------------------
-
-void launch_om(const float* x, const float* omw, const float* omb,
-               float* om, int B, int H, int W, int Cin, cudaStream_t stream) {
-  dcn_om_f32_kernel<<<blocks((long long)B * H * W, kOmPix), kThreads, 0,
-                      stream>>>(x, omw, omb, om, B, H, W, Cin);
-}
-
-void launch_gemm(const float* x, const float* off, int ld_off,
-                 const float* msk, int ld_msk, const float* w,
-                 const float* bias, float* y, int B, int H, int W, int Cin,
-                 int Cout, float max_dy, cudaStream_t stream) {
-  const dim3 grid(blocks((long long)B * H * W, kBM), blocks(Cout, kBN));
-  dcn_gemm_f32_kernel<<<grid, kThreads, 0, stream>>>(
-      x, off, ld_off, msk, ld_msk, w, bias, y, B, H, W, Cin, Cout, max_dy);
-}
-
-// float32 K1: the om conv, then the product on its om
-int launch_fused_f32(const void* x, const void* omw, const void* omb,
-                     const void* w, const void* bias, void* om, void* y,
-                     int B, int H, int W, int Cin, int Cout, float max_dy,
-                     cudaStream_t stream) {
-  launch_om(static_cast<const float*>(x), static_cast<const float*>(omw),
-            static_cast<const float*>(omb), static_cast<float*>(om), B, H, W,
-            Cin, stream);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const float* omf = static_cast<const float*>(om);
-  launch_gemm(static_cast<const float*>(x), omf, kOm, omf + 18, kOm,
-              static_cast<const float*>(w), static_cast<const float*>(bias),
-              static_cast<float*>(y), B, H, W, Cin, Cout, max_dy, stream);
-  return (int)cudaGetLastError();
-}
 
 // 0, or cudaErrorInvalidValue where the plan (split, stages, smem: see
 // ops/dcn_cuda.forward_plan) does not fit the shape
@@ -960,19 +1228,34 @@ int check_plan(int B, int H, int W, int Cin, int Cout, int split,
   return 0;
 }
 
-template <int NT, bool FUSED>
-cudaError_t launch_wgmma(const void* x, const void* omw, const void* omb,
-                         const void* off, const void* msk, const void* w,
-                         const void* bias, void* om, void* y, int B, int H,
-                         int W, int Cin, int Cout, float max_dy, int split,
-                         int stages, int smem, cudaStream_t st) {
-  using bf16 = __nv_bfloat16;
-  auto kern = dcn_gemm_wgmma<NT, FUSED>;
+// 0, or cudaErrorInvalidValue where the float32 plan does not fit the
+// shape (any Cout: more than 256 columns take column tiles)
+int check_plan_f32(int B, int H, int W, int Cin, int Cout, int split,
+                   int stages, int smem) {
+  const int bad = (int)cudaErrorInvalidValue;
+  if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1) return bad;
+  const long long npix = (long long)B * H * W;
+  if (npix >= (1LL << 31) / 8) return bad;  // pixels and grid in int
+  if (split < 1 || split > kMaxSplit || split > 9 * cdiv(Cin, kFC))
+    return bad;
+  const int kp = round_up(Cout < kColMax ? Cout : kColMax, 64);
+  const F32Layout L(kp, stages);
+  if (stages < 2 || stages > 8 || L.bytes != smem || smem > kSmemMax)
+    return bad;
+  if (split > 1 && L.bars < kTM * (kp + 4) * 4) return bad;
+  return 0;
+}
+
+// One launch of kern: grid.x in clusters of `split` blocks, `smem` bytes
+// of dynamic shared memory a block.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kern)(Params...), dim3 grid, int split,
+                            int smem, cudaStream_t st, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks((long long)B * H * W, kTM) * (unsigned)split);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(kWThreads);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = st;
@@ -983,14 +1266,68 @@ cudaError_t launch_wgmma(const void* x, const void* omw, const void* omb,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, kern, static_cast<const bf16*>(x), static_cast<const bf16*>(omw),
+  err = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int NT, bool FUSED>
+cudaError_t launch_wgmma(const void* x, const void* omw, const void* omb,
+                         const void* off, const void* msk, const void* w,
+                         const void* bias, void* om, void* y, int B, int H,
+                         int W, int Cin, int Cout, float max_dy, int split,
+                         int stages, int smem, cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  return launch_clusters(
+      dcn_gemm_wgmma<NT, FUSED>,
+      dim3(blocks((long long)B * H * W, kTM) * (unsigned)split), split, smem,
+      st, static_cast<const bf16*>(x), static_cast<const bf16*>(omw),
       static_cast<const bf16*>(omb), static_cast<const bf16*>(off),
       static_cast<const bf16*>(msk), static_cast<const bf16*>(w),
       static_cast<const float*>(bias), static_cast<float*>(om),
       static_cast<bf16*>(y), B, H, W, Cin, Cout, max_dy, split, stages);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+}
+
+template <int NT, bool FUSED>
+cudaError_t launch_ffma(const void* x, const void* omw, const void* omb,
+                        const void* off, const void* msk, const void* w,
+                        const void* bias, void* om, void* y, int B, int H,
+                        int W, int Cin, int Cout, float max_dy, int split,
+                        int stages, int smem, cudaStream_t st) {
+  return launch_clusters(
+      dcn_gemm_f32<NT, FUSED>,
+      dim3(blocks((long long)B * H * W, kTM) * (unsigned)split,
+           blocks(Cout, NT * 64)),
+      split, smem, st, static_cast<const float*>(x),
+      static_cast<const float*>(omw), static_cast<const float*>(omb),
+      static_cast<const float*>(off), static_cast<const float*>(msk),
+      static_cast<const float*>(w), static_cast<const float*>(bias),
+      static_cast<float*>(om), static_cast<float*>(y), B, H, W, Cin, Cout,
+      max_dy, split, stages);
+}
+
+template <bool FUSED>
+int launch_f32(const void* x, const void* omw, const void* omb,
+               const void* off, const void* msk, const void* w,
+               const void* bias, void* om, void* y, int B, int H, int W,
+               int Cin, int Cout, float max_dy, int split, int stages,
+               int smem, cudaStream_t st) {
+  const int rc = check_plan_f32(B, H, W, Cin, Cout, split, stages, smem);
+  if (rc) return rc;
+  switch (cdiv(Cout < kColMax ? Cout : kColMax, 64)) {
+#define CP_NT(N)                                                            \
+  case N:                                                                   \
+    return (int)launch_ffma<N, FUSED>(x, omw, omb, off, msk, w, bias, om,  \
+                                      y, B, H, W, Cin, Cout, max_dy, split, \
+                                      stages, smem, st);
+    CP_NT(1)
+    CP_NT(2)
+    CP_NT(3)
+    CP_NT(4)
+#undef CP_NT
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <bool FUSED>
@@ -1022,8 +1359,8 @@ int launch_bf16(const void* x, const void* omw, const void* omb,
 // K1.  dtype: 0 = float32, 1 = bfloat16 (x, omw, omb, w, y); bias is
 // float32, added to the f32 accumulator before the output's rounding; om:
 // f32 [B*H*W, 27], written.  max_dy < 0: unclamped.  split, stages, smem:
-// the bf16 launch plan (ops/dcn_cuda.forward_plan; unused for float32).
-// Returns 0 or the CUDA error of the first launch that failed.
+// the launch plan of the dtype (ops/dcn_cuda.forward_plan).  Returns 0 or
+// the CUDA error of the launch.
 extern "C" int cp_dcn_v2_fused_forward(int dtype, const void* x,
                                        const void* omw, const void* omb,
                                        const void* w, const void* bias,
@@ -1033,8 +1370,8 @@ extern "C" int cp_dcn_v2_fused_forward(int dtype, const void* x,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_fused_f32(x, omw, omb, w, bias, om, y, B, H, W, Cin, Cout,
-                            max_dy, s);
+    return launch_f32<true>(x, omw, omb, nullptr, nullptr, w, bias, om, y, B,
+                            H, W, Cin, Cout, max_dy, split, stages, smem, s);
   if (dtype == 1)
     return launch_bf16<true>(x, omw, omb, nullptr, nullptr, w, bias, om, y,
                              B, H, W, Cin, Cout, max_dy, split, stages, smem,
@@ -1053,13 +1390,10 @@ extern "C" int cp_dcn_v2_forward(int dtype, const void* x, const void* off,
                                  int split, int stages, int smem,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch_gemm(static_cast<const float*>(x), static_cast<const float*>(off),
-                18, static_cast<const float*>(msk), 9,
-                static_cast<const float*>(w), static_cast<const float*>(bias),
-                static_cast<float*>(y), B, H, W, Cin, Cout, max_dy, s);
-    return (int)cudaGetLastError();
-  }
+  if (dtype == 0)
+    return launch_f32<false>(x, nullptr, nullptr, off, msk, w, bias, nullptr,
+                             y, B, H, W, Cin, Cout, max_dy, split, stages,
+                             smem, s);
   if (dtype == 1)
     return launch_bf16<false>(x, nullptr, nullptr, off, msk, w, bias,
                               nullptr, y, B, H, W, Cin, Cout, max_dy, split,

@@ -58,19 +58,13 @@ def clamp_dy(offset: torch.Tensor, max_dy: Optional[float],
     return torch.stack([dy, off[..., 1]], -1).reshape(offset.shape)
 
 
-def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
-           weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-           max_dy: Optional[float] = None,
-           edge_grad: float = 1.0,
-           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """x [B,H,W,Cin], offset [B,H,W,18], mask [B,H,W,9], weight
-    [3,3,Cin,Cout] -> [B,H,W,Cout] in ``out_dtype`` (default x's).
-    ``max_dy`` clips dy before sampling; ``edge_grad`` is the clip's
-    gradient at exactly +-max_dy."""
+def dcn_v2_columns(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                   max_dy: Optional[float] = None,
+                   edge_grad: float = 1.0) -> torch.Tensor:
+    """The im2col column of ``dcn_v2`` in f32, before any rounding: [B*H*W,
+    9*Cin], column k*Cin + c = the mask times the four bilinear corners of
+    tap k at channel c, summed in corner order (zero outside the image)."""
     b, h, w, cin = x.shape
-    kh, kw, wcin, cout = weight.shape
-    if (kh, kw) != (3, 3) or wcin != cin:
-        raise ValueError(f"weight {tuple(weight.shape)} for x {tuple(x.shape)}")
     if offset.shape != (b, h, w, 18) or mask.shape != (b, h, w, 9):
         raise ValueError(f"offset {tuple(offset.shape)} / mask "
                          f"{tuple(mask.shape)} for x {tuple(x.shape)}")
@@ -100,7 +94,24 @@ def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         wfull = (wgt * valid.to(f32) * m).reshape(b, h * w * 9, 1)
         term = gathered * wfull
         samples = term if samples is None else samples + term
-    cols = samples.reshape(b * h * w, 9 * cin)
+    return samples.reshape(b * h * w, 9 * cin)
+
+
+def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+           weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+           max_dy: Optional[float] = None,
+           edge_grad: float = 1.0,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x [B,H,W,Cin], offset [B,H,W,18], mask [B,H,W,9], weight
+    [3,3,Cin,Cout] -> [B,H,W,Cout] in ``out_dtype`` (default x's).
+    ``max_dy`` clips dy before sampling; ``edge_grad`` is the clip's
+    gradient at exactly +-max_dy."""
+    b, h, w, cin = x.shape
+    kh, kw, wcin, cout = weight.shape
+    if (kh, kw) != (3, 3) or wcin != cin:
+        raise ValueError(f"weight {tuple(weight.shape)} for x {tuple(x.shape)}")
+    f32 = torch.float32
+    cols = dcn_v2_columns(x, offset, mask, max_dy, edge_grad)
     # rounded to the input type in value, unrounded in the gradient
     cols = cols + (cols.detach().to(x.dtype).to(f32) - cols.detach())
     out = cols @ weight.to(f32).reshape(9 * cin, cout)

@@ -18,16 +18,17 @@ Counterpart of ``centerpose_tpu/ops/dcn_pallas.py``.  Three parts:
   XLA fallback 0.5).  It is a statement about the reference, not about
   H100 limits.
 * **Kernels.**  ``csrc/dcn_fused.cu`` holds K1 (offset/mask conv +
-  clamped bilinear gather + GEMM; in bf16 one warp-specialised wgmma
-  launch per call) and K2 (the same kernel on explicit offsets and mask);
+  clamped bilinear gather + GEMM; one warp-specialised launch per call,
+  on wgmma in bf16 and on the CUDA cores' FMA in float32) and K2 (the same
+  kernels on explicit offsets and mask);
   ``csrc/dcn_bwd.cu`` the backward of both; ``csrc/dcn_hopper.cuh`` the
   Hopper helpers they share.  Each source is built with ``nvcc`` at first
   use into a library of its own in ``centerpose_tpu_torch/build/`` (one
   ``nvcc`` per source, all started together), keyed by a hash of the
   source, the headers it includes and the flags, and loaded with
-  ``ctypes``.  ``forward_plan`` is the bf16 forward's launch plan (tile,
-  split of the reduction, ring stages, shared memory), computed here from
-  the shapes and checked by the kernel's entry point.
+  ``ctypes``.  ``forward_plan`` is the forward's launch plan in either
+  dtype (tile, split of the reduction, ring stages, shared memory),
+  computed here from the shapes and checked by the kernel's entry point.
 * **Operators and autograd.**  K1 is the ``torch.library`` operator
   ``centerpose::dcn_v2_fused`` and K2 the operator ``centerpose::dcn_v2``
   (each with a fake kernel for tracing, a FLOP formula, the plain version
@@ -389,9 +390,9 @@ BUILD_DIR = _PKG / "build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# __global__ launches of one K1 call: bf16 one (om conv and product in one
-# block, split sites in one cluster launch), float32 two (om conv, product)
-KERNELS_PER_CALL = {torch.bfloat16: 1, torch.float32: 2}
+# __global__ launches of one K1 call, in either dtype: one (the om conv and
+# the product in one block, split sites in one cluster launch)
+KERNELS_PER_CALL = {torch.bfloat16: 1, torch.float32: 1}
 _SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 
 _lib_lock = threading.Lock()
@@ -547,11 +548,15 @@ def _bias_or_zeros(bias: Optional[torch.Tensor], cout: int,
     return bias
 
 
-# The bf16 forward kernel (dcn_gemm_wgmma in csrc/dcn_fused.cu): its tile,
-# its reduction chunks, its ring and its shared memory, mirrored here so
-# that the plan is a function of the shapes the CPU tests can reach.
-_TILE_M = 64          # pixels per block: one consumer warpgroup's wgmma M
-_CHUNK = 64           # input channels per ring stage (the stage's K)
+# The forward kernels (dcn_gemm_wgmma in bf16, dcn_gemm_f32 in float32, in
+# csrc/dcn_fused.cu): their tile, their reduction chunks, their ring and
+# their shared memory, mirrored here so that the plan is a function of the
+# shapes the CPU tests can reach.
+_TILE_M = 64          # pixels per block (the wgmma M; 8 FFMA rows of 8)
+_CHUNK = 64           # bf16 input channels per ring stage (the stage's K)
+_CHUNK_F32 = 32       # f32 input channels per ring stage: a 128-byte row
+_LDA_F32 = 36         # row stride of the f32 kernel's A tile (floats)
+_COLS_F32 = 256       # columns of one f32 block; more take column tiles
 _OM_N = 32            # om columns: 27 padded to a wgmma N
 _SMS = 132            # SMs of an H100 SXM
 _SM_SMEM = 233472     # shared memory of one SM (228 KB)
@@ -564,14 +569,27 @@ def _align128(v: int) -> int:
     return _roundup(v, 128)
 
 
+def _fixed_smem(stages: int) -> int:
+    """The part of a forward block's shared memory outside its ring: the
+    mbarriers, two corner tables, the f32 om tile and om partial."""
+    return (_align128(16 * stages) + 2 * 4 * _TILE_M * 12
+            + _TILE_M * 27 * 4 + _TILE_M * _OM_N * 4)
+
+
 def fwd_smem_bytes(kp: int, stages: int) -> int:
     """Dynamic shared memory of one bf16 forward block (``FwdLayout`` in
     csrc/dcn_fused.cu): the ring of A [64 x 64] and B [64 x kp] bf16
-    stages, their mbarriers, two corner tables, the f32 om tile and om
-    partial, three slots of om weight rows [64][27] bf16."""
+    stages, the fixed part, three slots of om weight rows [64][27] bf16."""
     stage = _TILE_M * _CHUNK * 2 + _CHUNK * kp * 2
-    return (stages * stage + _align128(16 * stages) + 2 * 4 * _TILE_M * 12
-            + _TILE_M * 27 * 4 + _TILE_M * _OM_N * 4 + 3 * _CHUNK * 27 * 2)
+    return stages * stage + _fixed_smem(stages) + 3 * _CHUNK * 27 * 2
+
+
+def fwd_f32_smem_bytes(kp: int, stages: int) -> int:
+    """Dynamic shared memory of one float32 forward block (``F32Layout``
+    in csrc/dcn_fused.cu): the ring of A [64][36] and B [32 x kp] f32
+    stages and the fixed part."""
+    stage = _TILE_M * _LDA_F32 * 4 + _CHUNK_F32 * kp * 4
+    return stages * stage + _fixed_smem(stages)
 
 
 def _split_cost(tiles: int, chunks: int, resident: int, split: int) -> int:
@@ -586,59 +604,61 @@ def forward_plan(dtype: torch.dtype, b: int, h: int, w: int, cin: int,
                  cout: int) -> dict:
     """The launch plan of one K1 or K2 call, a pure function of the shapes.
 
-    bfloat16: one block per 64-pixel tile covering all of Cout (padded to
-    ``n_pad``, a multiple of 64 up to 256); the 9*Cin reduction runs in
-    ``chunks`` steps of (tap, 64 channels), j -> tap j // ``slices``.
-    Where the tiles leave SMs idle, ``split`` blocks of one cluster share a
-    tile, rank r taking chunks ``chunk_ranges[r]`` and summing output rows
-    ``reduce_rows[r]`` in rank order (deterministic).  ``stages`` ring
-    stages: as many as fit with two blocks per SM where Cout <= 128 (the
-    registers allow two there), else one block per SM; at most four.
-    float32: the CUDA-core kernels, 64 x 64 output tiles, no split."""
+    One launch, whatever the dtype: one block per 64-pixel tile covering
+    ``n_pad`` columns (Cout padded to a multiple of 64, up to 256; in
+    float32 a wider Cout takes ``col_tiles`` column tiles, bf16 refuses
+    it); the 9*Cin reduction runs in ``chunks`` steps of (tap, ``chunk``
+    channels: 64 in bf16, 32 in float32, one 128-byte row either way),
+    j -> tap j // ``slices``.  Where the tiles leave SMs idle, ``split``
+    blocks of one cluster share a tile, rank r taking chunks
+    ``chunk_ranges[r]`` and summing output rows ``reduce_rows[r]`` in rank
+    order (deterministic).  ``stages`` ring stages: as many as fit with
+    two blocks per SM where Cout <= 128 (the registers allow two there),
+    else one block per SM; at most four.  ``kernel``: "wgmma" (bf16) or
+    "ffma" (float32, FMA on the CUDA cores)."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"dcn_v2 forward: dtype {dtype}")
     if min(b, h, w, cin, cout) < 1:
         raise ValueError(f"dcn_v2 forward: shape {(b, h, w, cin, cout)}")
-    npix = b * h * w
-    tiles = -(-npix // _TILE_M)
-    if dtype == torch.float32:
-        return dict(kernel="f32", launches=KERNELS_PER_CALL[dtype],
-                    tile_m=_TILE_M, tiles=tiles, col_tiles=-(-cout // 64),
-                    n_pad=_roundup(cout, 64), split=1, stages=0, smem=0,
-                    slices=-(-cin // 32), chunk=32,
-                    chunks=9 * -(-cin // 32),
-                    chunk_ranges=((0, 9 * -(-cin // 32)),),
-                    reduce_rows=((0, _TILE_M),), grid=(tiles, -(-cout // 64)))
-    if cout > 256:
+    f32 = dtype == torch.float32
+    if cout > 256 and not f32:
         raise ValueError(f"dcn_v2 forward: Cout {cout} > 256 (bfloat16)")
+    npix = b * h * w
     if npix >= (1 << 31) // 8:
         raise ValueError(f"dcn_v2 forward: {npix} pixels")
-    nt = -(-cout // 64)
+    tiles = -(-npix // _TILE_M)
+    nt = -(-min(cout, _COLS_F32) // 64)
     kp = 64 * nt
+    col_tiles = -(-cout // kp)
+    chunk = _CHUNK_F32 if f32 else _CHUNK
+    smem_of = fwd_f32_smem_bytes if f32 else fwd_smem_bytes
     per_sm = 2 if nt <= 2 else 1
     room = min(_SM_SMEM // per_sm - _BLOCK_RESERVED, _SMEM_LIMIT)
-    stage = _TILE_M * _CHUNK * 2 + _CHUNK * kp * 2
-    stages = min(_MAX_STAGES, (room - fwd_smem_bytes(kp, 0)) // stage)
-    smem = fwd_smem_bytes(kp, stages)
-    slices = -(-cin // _CHUNK)
+    stages = max(s for s in range(2, _MAX_STAGES + 1)
+                 if s == 2 or smem_of(kp, s) <= room)
+    smem = smem_of(kp, stages)
+    slices = -(-cin // chunk)
     chunks = 9 * slices
+    blocks = tiles * col_tiles
     resident = _SMS * per_sm  # blocks the card holds at once
     split = 1
-    if tiles < resident:
+    if blocks < resident:
         split = min(range(1, min(_MAX_SPLIT, chunks) + 1),
-                    key=lambda s: (_split_cost(tiles, chunks, resident, s),
+                    key=lambda s: (_split_cost(blocks, chunks, resident, s),
                                    s))
-    return dict(kernel="wgmma", launches=KERNELS_PER_CALL[dtype],
-                tile_m=_TILE_M, tiles=tiles, col_tiles=1, n_pad=kp,
-                split=split, stages=stages, smem=smem, slices=slices,
-                chunk=_CHUNK, chunks=chunks,
+    return dict(kernel="ffma" if f32 else "wgmma",
+                launches=KERNELS_PER_CALL[dtype], tile_m=_TILE_M,
+                tiles=tiles, col_tiles=col_tiles, n_pad=kp, split=split,
+                stages=stages, smem=smem, slices=slices, chunk=chunk,
+                chunks=chunks,
                 chunk_ranges=tuple((r * chunks // split,
                                     (r + 1) * chunks // split)
                                    for r in range(split)),
                 reduce_rows=tuple((r * _TILE_M // split,
                                    (r + 1) * _TILE_M // split)
                                   for r in range(split)),
-                grid=(tiles * split,))
+                grid=(tiles * split, col_tiles) if f32
+                else (tiles * split,))
 
 
 def launch_fused_forward(x, omw, omb, weight, bias, max_dy):
@@ -966,8 +986,8 @@ def dcn_v2_fused(x: torch.Tensor, omw: torch.Tensor, omb: torch.Tensor,
 
 
 # Launch counts of the kernels: a successful launch adds to its wrapper's
-# count (KERNELS_PER_CALL[dtype] for a K1 call: one in bf16, two in
-# float32; one for a K2 call; one for a backward call), nothing else does.
+# count (KERNELS_PER_CALL[dtype] for a K1 call, one in either dtype; one
+# for a K2 call; one for a backward call), nothing else does.
 # Callers reset them with ``reset_launch_counts``.
 COUNTED = (dcn_v2_fused, dcn_v2, dcn_v2_backward)
 for _fn in COUNTED:

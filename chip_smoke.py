@@ -13,31 +13,32 @@ took:
 1. the card (``nvidia-smi``) and the build of the CUDA libraries (one
    ``nvcc`` per source, started together);
 2. kernel check: K1 (``dcn_v2_fused``) against its plain version at the 7
-   DCN site shapes of dla_34 @512, batch 1, in float32 (TF32 off) and
-   bfloat16, and at batch 8 (the serving batch) in bfloat16, with offsets
-   large enough to exercise the y-clamp; time per call beside the plain
-   version's, the bound of the card, the bytes the call gathers (mostly
-   from L2) and the bf16 launch plan (tile, split, stages, launches); K1's
-   time per forward (the 16 calls) at batch 1 and 8;
+   DCN site shapes of dla_34 @512, batch 1 and 8 (the serving batch), in
+   float32 (TF32 off) and bfloat16, with offsets large enough to exercise
+   the y-clamp; time per call beside the plain version's, the bound of the
+   card, the bytes the call gathers (mostly from L2) and the launch plan
+   (kernel, tile, split, stages, launches); K1's time per forward (the 16
+   calls) at batch 1 and 8 in each dtype;
 3. training kernel check: K2 (``dcn_v2``) and the backward kernel
    (``dcn_v2_backward``: dx, doffset, dmask, dW, dbias) against their plain
    versions (``ops/dcn.dcn_v2`` and its autograd) on one cotangent, at the 7
-   site shapes, in float32 at batch 1 and bfloat16 at batch 8 (the training
+   site shapes, in float32 and bfloat16 at batch 1 and 8 (the training
    batch), with offsets that clamp at some taps; K2's time per step (16
-   calls) at batch 8;
+   calls) at batch 1 and 8 in each dtype;
    then a determinism check: at the 7 site shapes, batch 8, in bfloat16
    and float32, two backward calls on the same inputs give bit-equal dx,
-   doffset, dmask, dW and dbias, and at batch 1 and 8 in bfloat16 two K1
-   calls bit-equal y and om, two K2 calls bit-equal y (split plans among
-   them); and an edge check at a 384x384 site whose
+   doffset, dmask, dW and dbias, and at batch 1 and 8 in bfloat16 and
+   float32 two K1 calls bit-equal y and om, two K2 calls bit-equal y
+   (split plans among them); and an edge check at a 384x384 site whose
    reference backward falls back to the VJP of ``jnp.clip`` (gradient 0.5
    where |dy| is exactly R): the kernel with that edge against the plain
    version, and against itself with edge 1;
 4. model check: the whole model's inference kernel path against its plain
    path on the card (head errors, overlap of the top-100 decoded centers),
-   in float32 and bfloat16, and 16 K1 calls per forward (16 kernel
-   launches in bfloat16, one a call; 32 in float32: the om conv and the
-   product); then the ``dcn_impl: conv`` ablation (dla_34 @512 bf16 from
+   in float32 and bfloat16, and 16 K1 calls per forward
+   (``dcn_cuda.KERNELS_PER_CALL`` launches each: 16 kernel launches in
+   either dtype, the om conv and the product in one); then the
+   ``dcn_impl: conv`` ablation (dla_34 @512 bf16 from
    seeded random weights: one forward, finite heads, no DCN kernel
    launched);
 5. training model check: one training step at 512x512, batch 2, float32,
@@ -95,7 +96,9 @@ took:
    (``output/hard_eval.json``: ``cross_impl.pallas_full_bf16`` and
    ``modes.ms_flip_nms``, both on the snapshot); then the ``xla`` bf16
    row (K2 at every site, no K1), printed beside the reference's
-   ``cross_impl.xla_bf16``;
+   ``cross_impl.xla_bf16``, and the ``pallas_full`` float32 row at single
+   scale (K1 in float32), printed beside the reference's
+   ``cross_impl.pallas_full_f32`` and ``xla_f32``;
 11. backbones (serving), a main path: each backbone with a committed
    snapshot (res_18, hrnet_w32, mobilenetv3) through the port's
    ``tools/hard_eval`` backbone config (the defaults with ``model.name``:
@@ -196,7 +199,9 @@ main path and its trace alone, ``--only serving`` the build and the
 serving main path, ``--only data-parallel`` the build and the
 data-parallel phase, ``--only spatial`` the build and the spatial phase,
 ``--only offsets`` the build and the offsets phase, ``--only ablation``
-the build and the ablation phase (to compare two trees in one call).
+the build and the ablation phase, ``--only kernels`` the build, the
+kernel, training kernel and determinism checks and the model check (to
+compare two trees in one call).
 
 Then it prints the kernels' JSON line (K1's ``launches``: the serving,
 demo, export, spatial and offsets phases' together; K2's: the training
@@ -403,7 +408,7 @@ BENCH_ITERS, BENCH_FRAMES, BENCH_IMAGES = 10, 64, 8
 # launches K1 and K2 at each site (Cin, Cout, W) as often as one process
 # does; a rank with no rows launches none (a split of fewer stride-32 rows
 # than ranks; no case here has one) and is printed, not gated.
-SP_BATCH, SP_ITERS, SP_TIMEOUT = 2, 2, 600
+SP_BATCH, SP_ITERS, SP_TIMEOUT = 2, 1, 600
 SP_CASES = [("dla_34", "bfloat16", 512, (2, 4)),
             ("res_18", "float32", 512, (2,)),
             ("dla_34", "float32", 512, (2,)),
@@ -458,21 +463,37 @@ def phase(name: str, fn):
     return out
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events, after
-    one warm-up call)."""
+# Cycles the card sleeps before a timed loop, so that the host has queued
+# the calls before the first one starts and the events time the device
+# alone (about 11 ms at an H100's 1.755 GHz; a host that needs longer to
+# queue them shows its own dispatch in the time, as without the sleep).
+QUEUE_CYCLES = 20_000_000
+
+
+def cuda_ms_host(fn, iters: int):
+    """(mean device ms, mean host us) of ``fn`` over ``iters`` calls: CUDA
+    events around the calls, queued behind QUEUE_CYCLES of sleep, and the
+    host clock around their enqueue, after one warm-up call."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host = time.perf_counter() - t0
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, 1e6 * host / iters
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls (``cuda_ms_host``)."""
+    return cuda_ms_host(fn, iters)[0]
 
 
 def k1_bound(b: int, hw: int, cin: int, cout: int, dtype: str):
@@ -489,23 +510,23 @@ def k1_bound(b: int, hw: int, cin: int, cout: int, dtype: str):
                                        else "operations")
 
 
-def gather_bytes(b: int, hw: int, cin: int, fused: bool) -> float:
-    """Bytes one bf16 call gathers (mostly from L2, some from L1): four
-    corners of every (pixel, tap, channel) for the product, one for K1's
-    om conv.  Beside the bound, not in it (the bound counts each input
-    once)."""
-    return 2.0 * b * hw * hw * 9 * cin * (4 + (1 if fused else 0))
+def gather_bytes(b: int, hw: int, cin: int, fused: bool,
+                 dtype: str = "bfloat16") -> float:
+    """Bytes one call gathers (mostly from L2, some from L1): four corners
+    of every (pixel, tap, channel) for the product, one for K1's om conv,
+    in the dtype's width.  Beside the bound, not in it (the bound counts
+    each input once)."""
+    elem = 4 if dtype == "float32" else 2
+    return elem * b * hw * hw * 9 * cin * (4 + (1 if fused else 0))
 
 
 def plan_text(dtype, b: int, hw: int, cin: int, cout: int) -> str:
     from centerpose_tpu_torch.ops import dcn_cuda as dc
 
     p = dc.forward_plan(dtype, b, hw, hw, cin, cout)
-    if p["kernel"] != "wgmma":
-        return f"plan {p['kernel']} launches {p['launches']}"
-    return (f"plan tile {p['tile_m']}x{p['n_pad']} split {p['split']} "
-            f"stages {p['stages']} smem {p['smem']} grid {p['grid'][0]} "
-            f"launches {p['launches']}")
+    return (f"plan {p['kernel']} tile {p['tile_m']}x{p['n_pad']} split "
+            f"{p['split']} stages {p['stages']} smem {p['smem']} grid "
+            f"{p['grid'][0]} launches {p['launches']}")
 
 
 def k1_inputs(seed: int, b: int, hw: int, cin: int, cout: int):
@@ -554,15 +575,17 @@ def build():
 
 
 def kernel_check():
-    """K1 against its plain version at every site shape; returns the JSON
-    entries (bf16, the flagship dtype) keyed by site."""
+    """K1 against its plain version at every site shape, batch 1 and 8, in
+    float32 and bfloat16; returns the JSON entries (bf16 batch 1) keyed by
+    site."""
     import torch
 
     from centerpose_tpu_torch.ops import dcn_cuda as dc
     from centerpose_tpu_torch.ops.dcn import dcn_v2_fused_plain
 
     entries = {}
-    per_fwd = {1: 0.0, 8: 0.0}  # bf16 K1 ms per forward (16 calls)
+    # K1 ms per forward (16 calls) by (dtype, batch)
+    per_fwd = {(d, b): 0.0 for d in ("float32", "bfloat16") for b in (1, 8)}
     calls = {(cin, cout, hw): n for cin, cout, hw, n in SITES}
     cases = [(cin, cout, hw, dc.site_max_dy(hw, hw, cin, cout, "pallas_full"))
              for cin, cout, hw, _ in SITES]
@@ -570,73 +593,62 @@ def kernel_check():
           f"site policy at 512: {[c[3] for c in cases]}")
     cases.append((64, 64, 128, None))  # an unclamped site (the xla policy)
     for i, (cin, cout, hw, r) in enumerate(cases):
-        base = k1_inputs(100 + i, 1, hw, cin, cout)
-        for dtype in ("float32", "bfloat16"):
-            args = on_card(base, getattr(torch, dtype))
-            got = dc.dcn_v2_fused(*args, r)
-            ref = dcn_v2_fused_plain(*args, r)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()), "K1 output not finite")
-            err = (got.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            rel = err / max(scale, 1e-12)
-            clamped = 0.0
-            if r is not None:
-                om = torch.nn.functional.conv2d(
-                    args[0].float().permute(0, 3, 1, 2),
-                    args[1].float().permute(3, 2, 0, 1), args[2].float(),
-                    padding=1)
-                clamped = (om[:, 0:18:2].abs() > r).float().mean().item()
-                check(clamped > 0.01, f"clamp not exercised at R={r}")
-            ms = cuda_ms(lambda: dc.dcn_v2_fused(*args, r), 20)
-            plain_ms = cuda_ms(lambda: dcn_v2_fused_plain(*args, r), 5)
-            bound_ms, bound_by = k1_bound(1, hw, cin, cout, dtype)
-            say(f"  K1 {cin}->{cout} @{hw}x{hw} R={r} {dtype}: "
-                f"max_abs_err {err:.3e} (rel {rel:.2e}, tol "
-                f"{TOL_K1[dtype]:.0e}; |dy|>R at {clamped:.1%} of taps) "
-                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                f"bound {bound_ms:.5f} ms ({bound_by}); gathers "
-                f"{gather_bytes(1, hw, cin, True) / 1e6:.1f} MB; "
-                + plan_text(getattr(torch, dtype), 1, hw, cin, cout))
-            if dtype == "bfloat16" and r is not None:
-                per_fwd[1] += calls[(cin, cout, hw)] * ms
-            check(rel <= TOL_K1[dtype],
-                  f"K1 {cin}->{cout} @{hw} {dtype}: rel err {rel:.3e}")
-            if dtype == "bfloat16" and r is not None:
-                entries[(cin, cout, hw, hw)] = {
-                    "name": f"dcn_v2_fused {cin}->{cout} @{hw}x{hw} b1",
-                    "route": "cuda",
-                    "source": "centerpose_tpu_torch/csrc/dcn_fused.cu",
-                    "replaces": ("centerpose_tpu/ops/dcn_pallas.py:650"
-                                 if hw == 128 else
-                                 "centerpose_tpu/ops/dcn_pallas.py:735"),
-                    "launches": 0, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": None}
-        # batch 8, the shapes the serving batch gives the kernel
-        args = on_card(k1_inputs(200 + i, 8, hw, cin, cout), torch.bfloat16)
-        got = dc.dcn_v2_fused(*args, r)
-        ref = dcn_v2_fused_plain(*args, r)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), "K1 batch-8 output not finite")
-        err8 = (got.float() - ref.float()).abs().max().item()
-        rel8 = err8 / max(ref.float().abs().max().item(), 1e-12)
-        del got, ref
-        ms8 = cuda_ms(lambda: dc.dcn_v2_fused(*args, r), 10)
-        plain8 = cuda_ms(lambda: dcn_v2_fused_plain(*args, r), 3)
-        bound8, by8 = k1_bound(8, hw, cin, cout, "bfloat16")
-        say(f"  K1 {cin}->{cout} @{hw}x{hw} R={r} bfloat16 batch 8: "
-            f"max_abs_err {err8:.3e} (rel {rel8:.2e}, tol "
-            f"{TOL_K1['bfloat16']:.0e}) kernel {ms8:.4f} ms "
-            f"plain {plain8:.4f} ms bound {bound8:.5f} ms ({by8}); gathers "
-            f"{gather_bytes(8, hw, cin, True) / 1e6:.1f} MB; "
-            + plan_text(torch.bfloat16, 8, hw, cin, cout))
-        if r is not None:
-            per_fwd[8] += calls[(cin, cout, hw)] * ms8
-        check(rel8 <= TOL_K1["bfloat16"],
-              f"K1 {cin}->{cout} @{hw} bfloat16 batch 8: rel err {rel8:.3e}")
-    say(f"  K1 bfloat16 per forward (16 calls, sum of the site times): "
-        f"batch 1 {per_fwd[1]:.4f} ms, batch 8 {per_fwd[8]:.4f} ms")
+        for b, seed, iters, plain_iters in ((1, 100, 20, 5), (8, 200, 10, 3)):
+            base = k1_inputs(seed + i, b, hw, cin, cout)
+            for dtype in ("float32", "bfloat16"):
+                args = on_card(base, getattr(torch, dtype))
+                got = dc.dcn_v2_fused(*args, r)
+                ref = dcn_v2_fused_plain(*args, r)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()),
+                      f"K1 batch-{b} output not finite")
+                err = (got.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                rel = err / max(scale, 1e-12)
+                del got, ref
+                clamped = ""
+                if r is not None and b == 1:
+                    om = torch.nn.functional.conv2d(
+                        args[0].float().permute(0, 3, 1, 2),
+                        args[1].float().permute(3, 2, 0, 1),
+                        args[2].float(), padding=1)
+                    frac = (om[:, 0:18:2].abs() > r).float().mean().item()
+                    check(frac > 0.01, f"clamp not exercised at R={r}")
+                    clamped = f"; |dy|>R at {frac:.1%} of taps"
+                ms, host_us = cuda_ms_host(
+                    lambda: dc.dcn_v2_fused(*args, r), iters)
+                plain_ms = cuda_ms(lambda: dcn_v2_fused_plain(*args, r),
+                                   plain_iters)
+                bound_ms, bound_by = k1_bound(b, hw, cin, cout, dtype)
+                batch = "" if b == 1 else " batch 8"
+                say(f"  K1 {cin}->{cout} @{hw}x{hw} R={r} {dtype}{batch}: "
+                    f"max_abs_err {err:.3e} (rel {rel:.2e}, tol "
+                    f"{TOL_K1[dtype]:.0e}{clamped}) "
+                    f"kernel {ms:.4f} ms (host {host_us:.1f} us a call) "
+                    f"plain {plain_ms:.4f} ms "
+                    f"bound {bound_ms:.5f} ms ({bound_by}); gathers "
+                    f"{gather_bytes(b, hw, cin, True, dtype) / 1e6:.1f} MB; "
+                    + plan_text(getattr(torch, dtype), b, hw, cin, cout))
+                if r is not None:
+                    per_fwd[(dtype, b)] += calls[(cin, cout, hw)] * ms
+                check(rel <= TOL_K1[dtype], f"K1 {cin}->{cout} @{hw} "
+                      f"{dtype} batch {b}: rel err {rel:.3e}")
+                if dtype == "bfloat16" and b == 1 and r is not None:
+                    entries[(cin, cout, hw, hw)] = {
+                        "name": f"dcn_v2_fused {cin}->{cout} @{hw}x{hw} b1",
+                        "route": "cuda",
+                        "source": "centerpose_tpu_torch/csrc/dcn_fused.cu",
+                        "replaces": ("centerpose_tpu/ops/dcn_pallas.py:650"
+                                     if hw == 128 else
+                                     "centerpose_tpu/ops/dcn_pallas.py:735"),
+                        "launches": 0, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None}
+                del args
+    for dtype in ("float32", "bfloat16"):
+        say(f"  K1 {dtype} per forward (16 calls, sum of the site times): "
+            f"batch 1 {per_fwd[(dtype, 1)]:.4f} ms, batch 8 "
+            f"{per_fwd[(dtype, 8)]:.4f} ms")
     return entries
 
 
@@ -1363,8 +1375,8 @@ def k2_inputs(seed: int, b: int, hw: int, cin: int, cout: int, r):
 
 def train_kernel_check():
     """K2 and the backward kernel against their plain versions at every
-    site shape: float32 and bfloat16 at batch 1, bfloat16 at batch 8.
-    Returns the JSON entries (bfloat16 batch 8, the training shapes) keyed
+    site shape, float32 and bfloat16 at batch 1 and 8 (the training
+    batch); K2's time per step in each.  Returns the JSON entries (bfloat16 batch 8, the training shapes) keyed
     by (kernel, site)."""
     import torch
 
@@ -1372,7 +1384,9 @@ def train_kernel_check():
     from centerpose_tpu_torch.ops.dcn import dcn_v2, dcn_v2_backward_plain
 
     entries = {}
-    k2_step = 0.0  # bf16 K2 ms per batch-8 step (16 calls)
+    # K2 ms per step (16 calls) by (dtype, batch)
+    k2_step = {(d, b): 0.0 for d in ("float32", "bfloat16")
+               for b in (1, TRAIN_BATCH)}
     rs = [dc.train_site_max_dy(hw, hw, cin, cout, "pallas_full")
           for cin, cout, hw, _ in SITES]
     check(rs == [24, 12, 12, 12, 12, 12, 6], f"training site policy: {rs}")
@@ -1383,7 +1397,7 @@ def train_kernel_check():
     check(edges == [1.0] * 7, f"training edge gradients at 512: {edges}")
     for i, ((cin, cout, hw, n_calls), r) in enumerate(zip(SITES, rs)):
         for dtype, b in (("float32", 1), ("bfloat16", 1),
-                         ("bfloat16", TRAIN_BATCH)):
+                         ("float32", TRAIN_BATCH), ("bfloat16", TRAIN_BATCH)):
             dt = getattr(torch, dtype)
             x, off, mask, w, bias, ct = [
                 t.to("cuda", dt if j != 4 else torch.float32).contiguous()
@@ -1425,15 +1439,16 @@ def train_kernel_check():
                 f"{bb:.5f} ms ({bby}); max_abs_err (rel) "
                 + " ".join(f"{k} {e:.3e} ({q:.1e})"
                            for k, (e, q) in errs.items())
-                + f"; fwd gathers {gather_bytes(b, hw, cin, False) / 1e6:.1f}"
+                + "; fwd gathers "
+                f"{gather_bytes(b, hw, cin, False, dtype) / 1e6:.1f}"
                 f" MB; fwd " + plan_text(dt, b, hw, cin, cout))
             for name, (_, rel) in errs.items():
                 tol = (TOL_K2 if name == "y" else TOL_BWD)[dtype]
                 check(rel <= tol, f"{name} {cin}->{cout} @{hw} {dtype}: rel "
                       f"err {rel:.3e} > {tol:.0e}")
-            if b != TRAIN_BATCH:
+            k2_step[(dtype, b)] += n_calls * ms
+            if b != TRAIN_BATCH or dtype != "bfloat16":
                 continue
-            k2_step += n_calls * ms
             site = (cin, cout, hw, hw)
             wide = hw == 128
             entries[("dcn_v2", site)] = {
@@ -1457,8 +1472,10 @@ def train_kernel_check():
                 "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bb,
                 "bound_by": bby, "library_ms": None}
             del x, off, mask, w, bias, ct
-    say(f"  K2 bfloat16 per batch-{TRAIN_BATCH} step (16 calls, sum of the "
-        f"site times): {k2_step:.4f} ms")
+    for dtype in ("float32", "bfloat16"):
+        say(f"  K2 {dtype} per step (16 calls, sum of the site times): "
+            f"batch 1 {k2_step[(dtype, 1)]:.4f} ms, batch {TRAIN_BATCH} "
+            f"{k2_step[(dtype, TRAIN_BATCH)]:.4f} ms")
     return entries
 
 
@@ -1466,35 +1483,36 @@ def determinism_check():
     """Two calls on the same inputs give the same bits: the backward's
     gradients at every site shape, batch 8, in bfloat16 and float32; K1's
     y and om and K2's y at every site shape, batch 1 and 8, in bfloat16
-    (split plans among them)."""
+    and float32 (split plans among them)."""
     import torch
 
     from centerpose_tpu_torch.ops import dcn_cuda as dc
 
-    bf16 = torch.bfloat16
     for i, (cin, cout, hw, _) in enumerate(SITES):
         r = dc.site_max_dy(hw, hw, cin, cout, "pallas_full")
         for b in (1, TRAIN_BATCH):
-            args = on_card(k1_inputs(700 + i, b, hw, cin, cout), bf16)
-            y1, om1 = dc.launch_fused_forward(*args, r)
-            y2, om2 = dc.launch_fused_forward(*args, r)
-            x, off, mask, w, bias, _ = [
-                t.to("cuda", bf16 if j != 4 else torch.float32).contiguous()
-                for j, t in enumerate(k2_inputs(800 + i, b, hw, cin, cout,
-                                                r))]
-            z1 = dc.dcn_v2(x, off, mask, w, bias, r)
-            z2 = dc.dcn_v2(x, off, mask, w, bias, r)
-            torch.cuda.synchronize()
-            same = {"K1 y": bool(torch.equal(y1, y2)),
-                    "K1 om": bool(torch.equal(om1, om2)),
-                    "K2 y": bool(torch.equal(z1, z2))}
-            split = dc.forward_plan(bf16, b, hw, hw, cin, cout)["split"]
-            say(f"  determinism {cin}->{cout} @{hw}x{hw} bfloat16 batch {b}"
-                f" (split {split}): bit-equal "
-                + " ".join(f"{n}={v}" for n, v in same.items()))
-            check(all(same.values()), f"forward not deterministic at "
-                  f"{cin}->{cout} @{hw} batch {b}: {same}")
-            del args, y1, y2, om1, om2, x, off, mask, w, bias, z1, z2
+            for dtype in ("bfloat16", "float32"):
+                dt = getattr(torch, dtype)
+                args = on_card(k1_inputs(700 + i, b, hw, cin, cout), dt)
+                y1, om1 = dc.launch_fused_forward(*args, r)
+                y2, om2 = dc.launch_fused_forward(*args, r)
+                x, off, mask, w, bias, _ = [
+                    t.to("cuda", dt if j != 4 else torch.float32).contiguous()
+                    for j, t in enumerate(k2_inputs(800 + i, b, hw, cin, cout,
+                                                    r))]
+                z1 = dc.dcn_v2(x, off, mask, w, bias, r)
+                z2 = dc.dcn_v2(x, off, mask, w, bias, r)
+                torch.cuda.synchronize()
+                same = {"K1 y": bool(torch.equal(y1, y2)),
+                        "K1 om": bool(torch.equal(om1, om2)),
+                        "K2 y": bool(torch.equal(z1, z2))}
+                split = dc.forward_plan(dt, b, hw, hw, cin, cout)["split"]
+                say(f"  determinism {cin}->{cout} @{hw}x{hw} {dtype} batch "
+                    f"{b} (split {split}): bit-equal "
+                    + " ".join(f"{n}={v}" for n, v in same.items()))
+                check(all(same.values()), f"forward not deterministic at "
+                      f"{cin}->{cout} @{hw} {dtype} batch {b}: {same}")
+                del args, y1, y2, om1, om2, x, off, mask, w, bias, z1, z2
 
     for i, (cin, cout, hw, _) in enumerate(SITES):
         r = dc.train_site_max_dy(hw, hw, cin, cout, "pallas_full")
@@ -1862,11 +1880,13 @@ def eval_anchors() -> dict:
     check(ref["cross_impl"]["pallas_full_bf16"]["model_path"].endswith(
         "params_f16.npz") and ref["modes"]["ms_flip_nms"][
         "model_path"].endswith("params_f16.npz"), "anchors not on the npz")
-    check(ref["cross_impl"]["xla_bf16"]["model_path"].endswith(
-        "params_f16.npz"), "xla_bf16 anchor not on the npz")
+    for row in ("xla_bf16", "pallas_full_f32", "xla_f32"):
+        check(ref["cross_impl"][row]["model_path"].endswith(
+            "params_f16.npz"), f"{row} anchor not on the npz")
     return {"single": ref["cross_impl"]["pallas_full_bf16"]["stats"]["AP"],
             "ms_flip_nms": ref["modes"]["ms_flip_nms"]["stats"]["AP"],
-            "xla_bf16": ref["cross_impl"]["xla_bf16"]["stats"]["AP"]}
+            **{row: ref["cross_impl"][row]["stats"]["AP"]
+               for row in ("xla_bf16", "pallas_full_f32", "xla_f32")}}
 
 
 def evaluation(state_dict, card: str):
@@ -1874,7 +1894,9 @@ def evaluation(state_dict, card: str):
     the port's renderer, the bf16 pallas_full Detector (K1) over them at
     single scale and with flip and 3 scales (soft-NMS merge), OKS AP by the
     port's evaluator against the reference's; K1 must launch at every site
-    in each mode."""
+    in each mode.  Then two rows printed beside the reference's, not gated:
+    xla bf16 (K2 at every site) and pallas_full float32 (K1 in float32,
+    beside the reference's pallas_full and xla float32 rows)."""
     import numpy as np
     import torch
 
@@ -1895,12 +1917,14 @@ def evaluation(state_dict, card: str):
         f"{t_render:.2f} s ({EVAL_RENDER_WORKERS} processes)")
     modes = {"single": CROSS_IMPL["pallas_full_bf16"],
              "ms_flip_nms": FLAGSHIP_MODES["ms_flip_nms"],
-             "xla_bf16": CROSS_IMPL["xla_bf16"]}
+             "xla_bf16": CROSS_IMPL["xla_bf16"],
+             "pallas_full_f32": CROSS_IMPL["pallas_full_f32"]}
     for mode, opts in modes.items():
         cfg = flagship_config(opts)
         impl = "xla" if mode == "xla_bf16" else "pallas_full"
+        dtype = "float32" if mode == "pallas_full_f32" else "bfloat16"
         check(cfg.model.dcn_impl == impl
-              and cfg.model.compute_dtype == "bfloat16", f"{mode} config")
+              and cfg.model.compute_dtype == dtype, f"{mode} config")
         det = Detector(cfg, state_dict, device="cuda")
         det.run(ds.get_raw(0)[0])  # warm-up: cuDNN plans, allocator
         torch.cuda.synchronize()
@@ -1910,7 +1934,7 @@ def evaluation(state_dict, card: str):
         kernel, other = ((dc.dcn_v2, dc.dcn_v2_fused) if impl == "xla"
                          else (dc.dcn_v2_fused, dc.dcn_v2))
         per_call = (1 if impl == "xla"
-                    else dc.KERNELS_PER_CALL[torch.bfloat16])
+                    else dc.KERNELS_PER_CALL[getattr(torch, dtype)])
         sites = dict(kernel.launches_by_site)
         total = kernel.launches
         forwards = EVAL_N * len(cfg.test.test_scales)
@@ -1931,7 +1955,9 @@ def evaluation(state_dict, card: str):
         ms = " ".join(f"{k} {1e3 * times[k] / EVAL_N:.2f}" for k in STAGES)
         say(f"  eval {mode}: AP {stats['AP']:.4f} AP50 {stats['AP50']:.4f} "
             f"AP75 {stats['AP75']:.4f} AR {stats['AR']:.4f} (reference "
-            f"{want[mode]:.4f}, diff {stats['AP'] - want[mode]:+.4f}); "
+            f"{want[mode]:.4f}, diff {stats['AP'] - want[mode]:+.4f}"
+            + (f"; reference xla_f32 {want['xla_f32']:.4f}"
+               if dtype == "float32" else "") + "); "
             f"{EVAL_N / wall:.2f} images/s (host clock, Detector.run, "
             f"synchronised; ms per image: {ms}); OKS eval {t_eval:.2f} s; "
             f"{'K2' if impl == 'xla' else 'K1'} launches {total}; {card}")
@@ -3305,6 +3331,21 @@ def ablation_phase(state_dict, card: str) -> dict:
     return launches
 
 
+def only_kernels(card: str) -> int:
+    """``--only kernels``: the build, the kernel, training kernel and
+    determinism checks and the model check (no result line)."""
+    from centerpose_tpu_torch.weights import state_dict_from_npz
+
+    phase("build CUDA library", build)
+    phase("kernel check", kernel_check)
+    phase("training kernel check", train_kernel_check)
+    phase("determinism check", determinism_check)
+    state_dict = state_dict_from_npz(str(NPZ))
+    phase("model check", lambda: model_check(state_dict))
+    say(card)
+    return 0
+
+
 def only_ablation(card: str) -> int:
     """``--only ablation``: the build and the ablation phase alone (no
     result line)."""
@@ -3462,6 +3503,8 @@ def main() -> int:
         return only_offsets(card)
     if sys.argv[1:] == ["--only", "ablation"]:
         return only_ablation(card)
+    if sys.argv[1:] == ["--only", "kernels"]:
+        return only_kernels(card)
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     phase("build CUDA library", build)
     entries = phase("kernel check", kernel_check)

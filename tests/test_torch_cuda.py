@@ -109,6 +109,49 @@ def test_k1_k2_are_bit_deterministic(cuda, shape, split):
     assert torch.equal(k2[0], k2[1])
 
 
+# float32 launch plans (the FFMA kernel): (shape, split), split and not,
+# ragged Cin and Cout, and Cout past 256 (column tiles, grid.y)
+_PLAN_SHAPES_F32 = [((1, 16, 16, 512, 256, 24), 8),
+                    ((2, 9, 13, 40, 70, 2.0), 6),
+                    ((2, 32, 48, 96, 130, 0.5), 5),
+                    ((2, 64, 160, 64, 64, 6.0), 1),
+                    ((1, 128, 136, 3, 5, None), 1),
+                    ((1, 16, 16, 64, 300, 3.0), 6),
+                    ((2, 40, 40, 32, 520, None), 1)]
+
+
+@pytest.mark.parametrize("shape,split", _PLAN_SHAPES_F32)
+def test_k1_k2_f32_plans_match_plain(cuda, shape, split):
+    """K1 and K2 in float32 at split, unsplit and column-tiled plans: one
+    launch a call, y and K1's om against the plain versions, and the same
+    bits on a second call."""
+    from centerpose_tpu_torch.ops.dcn import dcn_v2, offset_mask
+
+    b, h, w, cin, cout, r = shape
+    f32 = torch.float32
+    assert dc.forward_plan(f32, b, h, w, cin, cout)["split"] == split
+    args = _args(cin + 2 * cout, b, h, w, cin, cout, f32, cuda)
+    x, off, mask, wgt, bias, _ = _train_args(cin + 5 * cout, b, h, w, cin,
+                                             cout, f32, cuda, r)
+    dc.reset_launch_counts()
+    y1, om1 = dc.launch_fused_forward(*args, r)
+    z1 = dc.dcn_v2(x, off, mask, wgt, bias, r)
+    assert dc.dcn_v2_fused.launches == dc.KERNELS_PER_CALL[f32] == 1
+    assert dc.dcn_v2.launches == 1
+    y2, om2 = dc.launch_fused_forward(*args, r)
+    z2 = dc.dcn_v2(x, off, mask, wgt, bias, r)
+    ref1 = dcn_v2_fused_plain(*args, r)
+    ref2 = dcn_v2(x, off, mask, wgt, bias, r)
+    off1, mask1 = offset_mask(*args[:3])
+    torch.cuda.synchronize()
+    assert _rel(y1, ref1) <= _TOL_FWD[f32]
+    assert _rel(z1, ref2) <= _TOL_FWD[f32]
+    assert _rel(om1[..., :18], off1) <= 1e-4
+    assert _rel(om1[..., 18:], mask1) <= 1e-4
+    assert torch.equal(y1, y2) and torch.equal(om1, om2)
+    assert torch.equal(z1, z2)
+
+
 def test_k1_writes_om_for_its_backward(cuda):
     """K1's om: the raw offsets and the sigmoid-ed mask of the om conv, as
     the backward reads them (the om conv is computed in the kernel)."""

@@ -1,10 +1,10 @@
 """The forward kernels' launch plan (``ops/dcn_cuda.forward_plan``) and the
 build key of the kernel libraries, on the CPU.
 
-The plan is the shape logic of the bf16 forward kernel (csrc/dcn_fused.cu,
-``dcn_gemm_wgmma``): which block owns which pixels, output columns and
-part of the 9*Cin reduction, how much shared memory it asks for, how many
-kernels one K1 call launches.  The kernel checks the plan it is given; these
+The plan is the shape logic of the forward kernels (csrc/dcn_fused.cu,
+``dcn_gemm_wgmma`` in bf16 and ``dcn_gemm_f32`` in float32): which block
+owns which pixels, output columns and part of the 9*Cin reduction, how much
+shared memory it asks for, how many kernels one K1 call launches.  The kernel checks the plan it is given; these
 tests check that every plan covers its problem exactly once, at the dla_34
 site shapes and at the ragged shapes of the card tests.
 """
@@ -34,11 +34,13 @@ def _check_plan(dtype, b, h, w, cin, cout):
     tile = plan["tile_m"]
     # the tiles cover every pixel once: the last tile holds the last pixel
     assert plan["tiles"] * tile >= npix > (plan["tiles"] - 1) * tile
-    # the output columns: padded Cout in whole 64-column tiles
-    assert plan["n_pad"] == 64 * plan["col_tiles"] * (
-        1 if plan["kernel"] == "f32" else -(-cout // 64))
-    assert plan["n_pad"] >= cout > plan["n_pad"] - 64
-    assert plan["launches"] == dc.KERNELS_PER_CALL[dtype]
+    # the output columns: a block's columns padded to whole 64-column
+    # sub-tiles, up to 256; column tiles of that width cover Cout
+    assert plan["n_pad"] == 64 * -(-min(cout, 256) // 64)
+    assert plan["col_tiles"] == -(-cout // plan["n_pad"])
+    assert plan["n_pad"] * plan["col_tiles"] >= cout
+    assert cout > plan["n_pad"] * (plan["col_tiles"] - 1)
+    assert plan["launches"] == dc.KERNELS_PER_CALL[dtype] == 1
     assert plan["smem"] <= 232448
     # the reduction: chunks (tap, channel slice) in ranges that partition
     # them, so each (tap, input channel) is summed by exactly one rank
@@ -59,21 +61,34 @@ def _check_plan(dtype, b, h, w, cin, cout):
     # the output rows of a tile: each summed and written by one rank
     rows = [r for a, b_ in plan["reduce_rows"] for r in range(a, b_)]
     assert rows == list(range(tile))
+    assert plan["split"] <= 8  # a cluster's portable size
+    assert 2 <= plan["stages"] <= 4
+    if plan["n_pad"] <= 128:  # two blocks fit on an SM
+        assert 2 * (plan["smem"] + 1024) <= 233472
     if plan["kernel"] == "wgmma":
+        assert dtype == torch.bfloat16 and plan["chunk"] == 64
+        assert plan["col_tiles"] == 1
         assert plan["grid"] == (plan["tiles"] * plan["split"],)
-        assert plan["split"] <= 8  # a cluster's portable size
-        assert 2 <= plan["stages"] <= 4
         assert plan["smem"] == dc.fwd_smem_bytes(plan["n_pad"],
                                                  plan["stages"])
-        # a split block's f32 partial [64][n_pad + 4] fits in its ring
+        # a stage: A [64 x 64] and B [64 x n_pad] bf16
         ring = plan["stages"] * (tile * plan["chunk"] * 2
                                  + plan["chunk"] * plan["n_pad"] * 2)
-        assert plan["split"] == 1 or ring >= tile * (plan["n_pad"] + 4) * 4
-        if plan["n_pad"] <= 128:  # two blocks fit on an SM
-            assert 2 * (plan["smem"] + 1024) <= 233472
     else:
-        assert plan["grid"] == (plan["tiles"], plan["col_tiles"])
-        assert plan["split"] == 1
+        # float32: one FFMA block per (tile, column tile), chunks of 32
+        # channels (a 128-byte row), split over a cluster like bf16
+        assert plan["kernel"] == "ffma" and dtype == torch.float32
+        assert plan["chunk"] == 32
+        assert plan["grid"] == (plan["tiles"] * plan["split"],
+                                plan["col_tiles"])
+        assert plan["smem"] == dc.fwd_f32_smem_bytes(plan["n_pad"],
+                                                     plan["stages"])
+        # a stage: A [64 x 36] (pixel-major, padded rows) and B [32 x
+        # n_pad] f32
+        ring = plan["stages"] * (tile * 36 * 4
+                                 + plan["chunk"] * plan["n_pad"] * 4)
+    # a split block's f32 partial [64][n_pad + 4] fits in its ring
+    assert plan["split"] == 1 or ring >= tile * (plan["n_pad"] + 4) * 4
     return plan
 
 
@@ -95,15 +110,33 @@ def test_plan_covers_ragged_shapes(shape, dtype):
 def test_plan_splits_small_sites_only():
     """The reduction is split where the tiles leave SMs idle (every
     W <= 64 site at batch 1, 512->256 @16 at batch 8) and not where they
-    fill the card (64->64 @128 at batch 8)."""
-    bf16 = torch.bfloat16
-    for cin, cout, stride in SITES:
-        hw = 512 // stride
-        if hw <= 64:
-            assert dc.forward_plan(bf16, 1, hw, hw, cin, cout)["split"] > 1
-    assert dc.forward_plan(bf16, 8, 16, 16, 512, 256)["split"] > 1
-    assert dc.forward_plan(bf16, 8, 128, 128, 64, 64)["split"] == 1
-    assert dc.forward_plan(bf16, 8, 64, 64, 128, 64)["split"] == 1
+    fill the card (64->64 @128 at batch 8), in both dtypes; float32 also
+    splits the W = 32 sites at batch 8 (its 64-wide tiles are as few)."""
+    for dt in DTYPES:
+        for cin, cout, stride in SITES:
+            hw = 512 // stride
+            if hw <= 64:
+                assert dc.forward_plan(dt, 1, hw, hw, cin, cout)["split"] > 1
+        assert dc.forward_plan(dt, 8, 16, 16, 512, 256)["split"] > 1
+        assert dc.forward_plan(dt, 8, 128, 128, 64, 64)["split"] == 1
+        assert dc.forward_plan(dt, 8, 64, 64, 128, 64)["split"] == 1
+    f32 = torch.float32
+    assert dc.forward_plan(f32, 1, 128, 128, 64, 64)["split"] == 1
+    assert [dc.forward_plan(f32, 8, 32, 32, cin, cout)["split"]
+            for cin, cout in ((256, 256), (256, 128), (256, 64))] == [1, 2, 2]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [(1, 16, 16, 64, 300),
+                                            (2, 40, 40, 32, 520),
+                                            (1, 5, 7, 3, 257)])
+def test_f32_plan_takes_any_cout_in_column_tiles(b, h, w, cin, cout):
+    """Past 256 columns the float32 kernel takes column tiles of 256 (the
+    grid's second dimension, each gathering its tile again); bfloat16
+    refuses the shape."""
+    plan = _check_plan(torch.float32, b, h, w, cin, cout)
+    assert plan["n_pad"] == 256 and plan["col_tiles"] == -(-cout // 256)
+    with pytest.raises(ValueError):
+        dc.forward_plan(torch.bfloat16, b, h, w, cin, cout)
 
 
 def test_plan_is_the_same_on_every_call():
