@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from centerpose_tpu_torch.data.encode import encode_example, stack_batch
+from centerpose_tpu_torch.utils.profiling import span
 
 # Worker-process globals (set once per worker by _init_worker).
 _WORKER_DS = None
@@ -189,7 +190,8 @@ def prefetch_to_device(host_iter: Iterator[Dict[str, np.ndarray]],
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("data.wait"):
+                item = q.get()
             if item is sentinel:
                 if err:
                     raise err[0]

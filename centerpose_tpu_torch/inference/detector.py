@@ -42,6 +42,7 @@ from centerpose_tpu_torch.ops.image import (FLIP_IDX, get_affine_transform,
 from centerpose_tpu_torch.ops.soft_nms import soft_nms_39
 from centerpose_tpu_torch.parallel.mesh import Mesh2D, spatial_sharding
 from centerpose_tpu_torch.utils.platform import resolve_device
+from centerpose_tpu_torch.utils.profiling import span
 from centerpose_tpu_torch.weights import load_state_dict
 
 
@@ -90,29 +91,34 @@ class ServingNet(nn.Module):
         self.loss = cfg.loss
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        if images.dtype == torch.uint8:
-            images = (images.float() / 255.0 - self.mean) / self.std
-        if self.flip_test:
-            images = torch.cat([images, images.flip(2)], dim=0)
-        out = (self.model(images) if self.sharding is None
-               else self.sharding.forward(self.model, images))
-        hm = sigmoid_clamped(out["hm"])
-        hm_hp = sigmoid_clamped(out["hm_hp"]) if self.loss.hm_hp else None
-        wh, hps = out["wh"], out["hps"]
-        reg = out["reg"] if self.loss.reg_offset else None
-        hp_offset = out["hp_offset"] if self.loss.reg_hp_offset else None
-        if self.flip_test:
-            n = images.shape[0] // 2
-            hm = (hm[:n] + hm[n:].flip(2)) / 2.0
-            wh = (wh[:n] + wh[n:].flip(2)) / 2.0
-            hps = (hps[:n] + flip_lr_off(hps[n:])) / 2.0
-            if hm_hp is not None:
-                hm_hp = (hm_hp[:n] + flip_lr(hm_hp[n:])) / 2.0
-            if reg is not None:
-                reg = reg[:n]
-            if hp_offset is not None:
-                hp_offset = hp_offset[:n]
-        return multi_pose_decode(hm, wh, hps, reg, hm_hp, hp_offset, k=self.k)
+        with span("serve.model"):
+            if images.dtype == torch.uint8:
+                images = (images.float() / 255.0 - self.mean) / self.std
+            if self.flip_test:
+                images = torch.cat([images, images.flip(2)], dim=0)
+            out = (self.model(images) if self.sharding is None
+                   else self.sharding.forward(self.model, images))
+        with span("serve.decode"):
+            hm = sigmoid_clamped(out["hm"])
+            hm_hp = (sigmoid_clamped(out["hm_hp"]) if self.loss.hm_hp
+                     else None)
+            wh, hps = out["wh"], out["hps"]
+            reg = out["reg"] if self.loss.reg_offset else None
+            hp_offset = (out["hp_offset"] if self.loss.reg_hp_offset
+                         else None)
+            if self.flip_test:
+                n = images.shape[0] // 2
+                hm = (hm[:n] + hm[n:].flip(2)) / 2.0
+                wh = (wh[:n] + wh[n:].flip(2)) / 2.0
+                hps = (hps[:n] + flip_lr_off(hps[n:])) / 2.0
+                if hm_hp is not None:
+                    hm_hp = (hm_hp[:n] + flip_lr(hm_hp[n:])) / 2.0
+                if reg is not None:
+                    reg = reg[:n]
+                if hp_offset is not None:
+                    hp_offset = hp_offset[:n]
+            return multi_pose_decode(hm, wh, hps, reg, hm_hp, hp_offset,
+                                     k=self.k)
 
 
 class Detector:
@@ -256,5 +262,10 @@ class Detector:
         """Batched frames [N, H, W, 3] -> decoded [N, K, 40] (grid coords).
         uint8 frames are normalised on the device; float32 frames are taken
         as already normalised.  The caller does any inverse affine."""
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-        return self.process(x).cpu().numpy()
+        with span("serve.batch"):
+            with span("serve.upload"):
+                x = torch.from_numpy(np.ascontiguousarray(images)).to(
+                    self.device)
+            dets = self.process(x)
+            with span("serve.readback"):
+                return dets.cpu().numpy()

@@ -44,6 +44,7 @@ from centerpose_tpu_torch.models.factory import create_model, model_dtype
 from centerpose_tpu_torch.parallel.mesh import (data_parallel, group_size,
                                                 sync_batch_norm)
 from centerpose_tpu_torch.utils.platform import resolve_device
+from centerpose_tpu_torch.utils.profiling import span
 from centerpose_tpu_torch.weights import load_state_dict
 
 # keys of an encoded example that only the evaluator reads
@@ -244,9 +245,11 @@ class Trainer:
         self.step = int(state["step"])
 
     def _loss(self, batch: Mapping[str, np.ndarray], net=None):
-        b = unpack_batch(batch_to_device(batch, self.device), self.cfg)
-        outputs = (net or self.model)(b["input"])
-        return multi_pose_loss(outputs, b, self.cfg, self._loss_group)
+        with span("train.upload"):
+            b = unpack_batch(batch_to_device(batch, self.device), self.cfg)
+        with span("train.forward"):
+            outputs = (net or self.model)(b["input"])
+            return multi_pose_loss(outputs, b, self.cfg, self._loss_group)
 
     def backward(self, batch: Mapping[str, np.ndarray],
                  sync: bool = True) -> Dict[str, torch.Tensor]:
@@ -256,12 +259,10 @@ class Trainer:
         is False: then each rank keeps its own sum, ``no_sync``).  Returns
         the loss stats as detached device scalars."""
         self.model.train()
-        if self.ddp is None:
-            loss, stats = self._loss(batch)
-            loss.backward()
-        else:
-            with (contextlib.nullcontext() if sync else self.ddp.no_sync()):
-                loss, stats = self._loss(batch, self.ddp)
+        quiet = self.ddp is not None and not sync
+        with (self.ddp.no_sync() if quiet else contextlib.nullcontext()):
+            loss, stats = self._loss(batch, self.ddp)
+            with span("train.backward"):
                 loss.backward()
         return {k: v.detach() for k, v in stats.items()}
 
@@ -271,8 +272,10 @@ class Trainer:
         before an update leave their gradients unsynchronised, and the
         update's all-reduce averages their sum).  Returns the loss stats as
         detached device scalars (read them with ``float``)."""
-        stats = self.backward(batch, sync=self.optimizer.updates_next())
-        self.optimizer.step()
+        with span("train.step"):
+            stats = self.backward(batch, sync=self.optimizer.updates_next())
+            with span("train.optimizer"):
+                self.optimizer.step()
         self.step += 1
         return stats
 
